@@ -7,13 +7,18 @@ Drives the port's main path through the entry points a user would call and
 holds every hand-written kernel against its plain PyTorch version:
 
   1. the card (name, power limit, torch / CUDA versions);
-  2. builds the Riccati kernel from upright_tpu_torch/csrc/ with nvcc;
-  3. the kernel against its plain version (float64) at four shape/form cases;
+  2. builds the Riccati kernel from upright_tpu_torch/csrc/ with nvcc and
+     prints registers, local memory and shared memory of each instantiation;
+  3. the kernel against its plain version (float64): the main-path shapes in
+     float32 and float64, the wide-input route (nu = 45) in both, and a batch
+     built to take the jitter fallback and to fail it (same NaN pattern);
   4. the batched main path: demos/thing_demo.yaml, N = 20, batch 512, one
      warm-started AL-SQP iteration per solve, solves/s over 10 re-solves;
   5. the steady replan at batch 1: shift -> heal -> solve -> policy;
-  6. one JSON line describing each kernel (time, bound, launches), then the
-     card's name and power limit, then the final JSON line.
+  6. kernel times (specialised and runtime-sized instances, both forms, batch
+     1, float64, nu = 45, N = 200), each beside its bound; then one JSON line
+     describing each kernel (time, bound, launches), the card's name and
+     power limit, and the final JSON line.
 
 With ``--breakdown`` it also times the phases of one solve (linearization,
 Riccati kernel, line search) between synchronisations and traces three solves
@@ -39,6 +44,7 @@ import numpy as np
 # Published peaks of the H100 SXM, used for the roofline bound of each kernel
 H100_BYTES_PER_S = 3.35e12
 H100_FP32_FLOPS = 67e12
+H100_FP64_FLOPS = 34e12  # NVIDIA's data sheet, SXM part, outside the tensor cores
 
 BATCH = 512
 HORIZON = 20
@@ -97,26 +103,46 @@ def mpc_shape_batch(Bt, N, nx, nu, seed=0, invariant=False):
     return A, B, d, g, H, gf, Hf
 
 
-def riccati_work(Bt, N, nx, nu, invariant):
+def riccati_work(Bt, N, nx, nu, invariant, elem_bytes=4):
     """(bytes, flops) the Riccati backward pass needs: each input read once,
     each output written once; the recursion's products, one factorisation
-    and one substitution pair per stage."""
+    and one substitution pair per stage.  The Qxu block of Q = H + Z^T P Z is
+    never read by the recursion, so it is not counted."""
     nz = nx + nu
-    per_stage_bytes = 4 * (nz * nz + nz + nx + nu * nx + nu)
+    per_stage_elems = nz * nz + nz + nx + nu * nx + nu
     if not invariant:
-        per_stage_bytes += 4 * nx * nz
-    total_bytes = Bt * (N * per_stage_bytes + 4 * (nx * nx + nx))
+        per_stage_elems += nx * nz
+    total_elems = Bt * (N * per_stage_elems + nx * nx + nx)
     if invariant:
-        total_bytes += 4 * nx * nz
+        total_elems += nx * nz
     per_stage_flops = (
         2 * nx * nx * nz  # P Z
-        + 2 * nz * nz * nx  # Z^T (P Z)
+        + 2 * nx * (nz * nz - nx * nu)  # Z^T (P Z) without the Qxu block
         + 2 * nx * nx + 2 * nz * nx  # P d, Z^T (p + P d)
-        + nu**3 // 3  # Cholesky of Quu
+        + nu**3 // 3  # factorisation of Quu
         + 2 * nu * nu * (nx + 1)  # forward and back substitution of [Qux | Qu]
         + 2 * nx * nx * nu + 2 * nx * nu  # Qux^T K, Qux^T kff
     )
-    return total_bytes, Bt * N * per_stage_flops
+    return elem_bytes * total_elems, Bt * N * per_stage_flops
+
+
+def fallback_batch(Bt=6, N=3, nx=6, nu=26, seed=7):
+    """A wide-input batch (per-stage dynamics) in which, at stage 1, B = 0 and
+    luu = diag(1, ..., 1, last): last = -1e-5 in instances 1 and 3 fails the
+    first jitter (1e-7 relative) and passes the second (1e-3); last = -1 in
+    instance 4 fails both.  Instances 0, 2 and 5 are ordinary."""
+    A, B, d, g, H, gf, Hf = (np.array(a, dtype=np.float64)
+                             for a in mpc_shape_batch(Bt, N, nx, nu, seed=seed))
+    nz = nx + nu
+    for b, last in ((1, -1e-5), (3, -1e-5), (4, -1.0)):
+        Hs = np.zeros((nz, nz))
+        Hs[:nx, :nx] = 2 * np.eye(nx)
+        Hs[nx:, nx:] = np.diag([1.0] * (nu - 1) + [last])
+        Hs[nx:, :nx] = 0.1 * np.arange(nu * nx).reshape(nu, nx) / (nu * nx)
+        Hs[:nx, nx:] = Hs[nx:, :nx].T
+        B[b, 1] = 0.0
+        H[b, 1] = Hs
+    return A, B, d, g, H, gf, Hf
 
 
 def main():
@@ -164,6 +190,20 @@ def main():
             times.append(start.elapsed_time(end))
         return statistics.median(times)
 
+    def cuda_launch_ms(fn, reps, inner=20):
+        """Device time of one launch: `inner` launches captured back to back
+        in a CUDA graph, the replay timed, over `inner`.  (One eager call
+        between two events on an idle card also counts the host's time from
+        the first event to the launch.)"""
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(inner):
+                fn()
+        return cuda_median_ms(graph.replay, reps, warmup=1) / inner
+
     # -- 1. the card ------------------------------------------------------
     log("== 1. card")
     smi = subprocess.run(
@@ -187,49 +227,115 @@ def main():
     build_s = time.perf_counter() - t0
     log(f"built csrc/riccati.cu in {build_s:.1f} s (set-up)")
     results["build_s"] = build_s
+    attrs = riccati.instance_attrs()
+    smem_at = {
+        "float32 nx=27 nu=13": [(27, 13, torch.float32, False)],
+        "float32 nx=18 nu=10": [(18, 10, torch.float32, False)],
+        "float32 runtime-sized": [(27, 13, torch.float32, True), (27, 45, torch.float32, True)],
+        "float64 runtime-sized": [(27, 13, torch.float64, True), (27, 45, torch.float64, True)],
+    }
+    for name, a in attrs.items():
+        dyn = ", ".join(f"{riccati.smem_bytes(nx_, nu_, dt, rt)} at {nx_}/{nu_}"
+                        for nx_, nu_, dt, rt in smem_at[name])
+        log(f"  instance {name}: {a['registers']} registers, {a['local_bytes']} bytes of local "
+            f"memory per thread, shared memory {a['static_smem_bytes']} static + {dyn} dynamic")
+    results["instances"] = attrs
 
     # -- 3. kernel vs plain version ------------------------------------------
     log("== 3. Riccati kernel vs its plain version (float64) on the card")
     reg = 1e-6
-    # Tolerance: 1e-4 absolute on K and kff (both O(1) here).  The float32
-    # recursion rounds differently from float64 over the N dependent stages;
-    # on an H100 the largest difference over the four cases is 5e-6, so 1e-4
-    # leaves a margin of 20 and is 50 times tighter than the 5e-3 the
-    # reference holds its own float32 kernel to on the random_batch data.
+    # Tolerances.  float32 kernel: 1e-4 absolute on K and kff (both O(1) here).
+    # The float32 recursion rounds differently from float64 over the N
+    # dependent stages; on an H100 the largest difference over these cases is
+    # 5e-6, so 1e-4 leaves a margin of 20 and is 50 times tighter than the 5e-3
+    # the reference holds its own float32 kernel to on the random_batch data.
+    # float64 kernel: 1e-10 relative to the largest entry; both sides are
+    # float64 and differ in summation order only (1e-14 on an H100), so an
+    # indexing fault at a tile edge cannot hide under it.
     KERNEL_ATOL = 1e-4
+    KERNEL_RTOL_F64 = 1e-10
     cases = [
         ("form_a_8x6x5x3", random_batch(8, 6, 5, 3), False),
         ("form_a_512x20x27x13", mpc_shape_batch(BATCH, HORIZON, 27, 13, seed=1), False),
         ("form_b_512x20x27x13", mpc_shape_batch(BATCH, HORIZON, 27, 13, seed=2, invariant=True), True),
         ("form_b_1x20x27x13", mpc_shape_batch(1, HORIZON, 27, 13, seed=3, invariant=True), True),
+        # the wide-input route (relative jitter instead of the pivot clamp) at
+        # the width of the frictional multi-object problems
+        ("form_a_64x20x27x45", mpc_shape_batch(64, HORIZON, 27, 45, seed=4), False),
+        ("form_b_64x20x27x45", mpc_shape_batch(64, HORIZON, 27, 45, seed=5, invariant=True), True),
+        ("form_b_64x200x27x13", mpc_shape_batch(64, 200, 27, 13, seed=6, invariant=True), True),
     ]
     kernel_inputs = {}
     max_abs_err = 0.0
+
+    def compare(name, K, kff, K_ref, kff_ref, tol, relative):
+        check(bool(torch.isfinite(K).all() and torch.isfinite(kff).all()), f"{name}: finite")
+        scale = max(1.0, float(K_ref.abs().max())) if relative else 1.0
+        err_K = float((K.double() - K_ref).abs().max()) / scale
+        err_k = float((kff.double() - kff_ref).abs().max()) / scale
+        log(f"  {name}: max|K - K_plain| = {err_K:.3e} (|K|max {float(K_ref.abs().max()):.3g}), "
+            f"max|kff - kff_plain| = {err_k:.3e}")
+        check(max(err_K, err_k) <= tol,
+              f"{name}: within {tol} {'of the largest entry' if relative else 'absolute'}")
+        results[f"kernel_err_{name}"] = max(err_K, err_k)
+        return max(err_K, err_k)
+
     for name, arrays, invariant in cases:
         f32 = tuple(torch.as_tensor(a, dtype=torch.float32, device=dev) for a in arrays)
         f64 = tuple(t.double() for t in f32)
-        K, kff = riccati.riccati_backward(*f32, reg=reg)
-        torch.cuda.synchronize()
         K_ref, kff_ref = riccati.riccati_backward_plain(*f64, reg=reg)
+        K, kff = riccati.riccati_backward(*f32, reg=reg)
+        K64, kff64 = riccati.riccati_backward(*f64, reg=reg)
         torch.cuda.synchronize()
-        check(bool(torch.isfinite(K).all() and torch.isfinite(kff).all()), f"{name}: finite")
-        err_K = float((K.double() - K_ref).abs().max())
-        err_k = float((kff.double() - kff_ref).abs().max())
-        log(f"  {name}: max|K - K_plain| = {err_K:.3e} (|K|max {float(K_ref.abs().max()):.3g}), "
-            f"max|kff - kff_plain| = {err_k:.3e}")
-        check(max(err_K, err_k) <= KERNEL_ATOL, f"{name}: within {KERNEL_ATOL} absolute")
-        max_abs_err = max(max_abs_err, err_K, err_k)
+        check(K.dtype == torch.float32 and K64.dtype == torch.float64, f"{name}: output dtypes")
+        max_abs_err = max(max_abs_err,
+                          compare(name, K, kff, K_ref, kff_ref, KERNEL_ATOL, relative=False))
+        compare(name + "_f64", K64, kff64, K_ref, kff_ref, KERNEL_RTOL_F64, relative=True)
+        if f32[-1].shape[-1] == 27 and f32[1].shape[-1] == 13:
+            # the runtime-sized float32 instance at a shape that has its own
+            K_rt, kff_rt = riccati.riccati_backward(*f32, reg=reg, runtime_sized=True)
+            max_abs_err = max(max_abs_err, compare(name + "_runtime_sized", K_rt, kff_rt,
+                                                   K_ref, kff_ref, KERNEL_ATOL, relative=False))
         kernel_inputs[name] = f32
-        results[f"kernel_err_{name}"] = max(err_K, err_k)
+
+    # the jitter fallback, per instance and per stage: where the first
+    # factorisation fails the second is taken, where both fail K and kff are
+    # NaN from that stage back; the pattern must be the plain version's
+    fb = tuple(torch.as_tensor(a, dtype=torch.float64, device=dev) for a in fallback_batch())
+    K_ref, kff_ref = riccati.riccati_backward_plain(*fb, reg=0.0)
+    nan_ref = torch.isnan(K_ref).any(-1).any(-1)  # (Bt, N)
+    expect = torch.zeros_like(nan_ref)
+    expect[1, 0] = expect[3, 0] = expect[4, 0] = expect[4, 1] = True
+    check(bool((nan_ref == expect).all()),
+          "fallback batch, plain version: instance 4 is NaN from stage 1 back; instances 1 and 3 "
+          "take the second factorisation at stage 1 and fail both at stage 0; the rest is finite")
+    for dtype, tol, relative in ((torch.float64, KERNEL_RTOL_F64, True),
+                                 (torch.float32, KERNEL_ATOL, True)):
+        K, kff = riccati.riccati_backward(*(t.to(dtype) for t in fb), reg=0.0)
+        torch.cuda.synchronize()
+        same = bool((torch.isnan(K) == torch.isnan(K_ref)).all()
+                    and (torch.isnan(kff) == torch.isnan(kff_ref)).all())
+        check(same, f"fallback batch, {dtype}: NaN exactly where the plain version has NaN")
+        ok = ~torch.isnan(K_ref)
+        scale = float(K_ref[ok].abs().max())
+        err = max(float((K.double() - K_ref)[ok].abs().max()),
+                  float((kff.double() - kff_ref)[~torch.isnan(kff_ref)].abs().max())) / scale
+        log(f"  fallback batch, {dtype}: max err / largest entry = {err:.3e} (|K|max {scale:.3g})")
+        check(err <= tol, f"fallback batch, {dtype}: finite entries within {tol} of the largest")
+        results[f"kernel_err_fallback_{str(dtype).split('.')[-1]}"] = err
 
     # the wrapper has no fallback: what the kernel does not take raises
-    bad = tuple(t.double() for t in kernel_inputs["form_a_8x6x5x3"])
-    try:
-        riccati.riccati_backward(*bad, reg=reg)
-    except TypeError:
-        log("  ok: float64 CUDA tensors raise (no quiet fallback to the plain version)")
-    else:
-        raise AssertionError("riccati_backward accepted float64 CUDA tensors")
+    small = kernel_inputs["form_a_8x6x5x3"]
+    for label, bad in (
+        ("mixed float32 / float64", small[:4] + (small[4].double(),) + small[5:]),
+        ("bfloat16", tuple(t.bfloat16() for t in small)),
+    ):
+        try:
+            riccati.riccati_backward(*bad, reg=reg)
+        except TypeError:
+            log(f"  ok: {label} CUDA tensors raise (no quiet fallback to the plain version)")
+        else:
+            raise AssertionError(f"riccati_backward accepted {label} CUDA tensors")
 
     # -- 4. batched main path ----------------------------------------------
     log(f"== 4. batched solve: thing_demo, N = {HORIZON}, batch {BATCH}")
@@ -370,11 +476,54 @@ def main():
     inp_b = kernel_inputs["form_b_512x20x27x13"]
     inp_a = kernel_inputs["form_a_512x20x27x13"]
     inp_1 = kernel_inputs["form_b_1x20x27x13"]
-    ms = cuda_median_ms(lambda: riccati.riccati_backward(*inp_b, reg=reg), reps=50)
-    ms_a = cuda_median_ms(lambda: riccati.riccati_backward(*inp_a, reg=reg), reps=50)
-    ms_1 = cuda_median_ms(lambda: riccati.riccati_backward(*inp_1, reg=reg), reps=50)
+
+    def kernel_ms(inp, **opts):
+        return cuda_launch_ms(lambda: riccati.riccati_backward(*inp, reg=reg, **opts), reps=50)
+
+    # (label, inputs, wrapper options, shape for the bound, float64?)
+    timed = [
+        ("form_b_512x20x27x13", inp_b, {}, (BATCH, HORIZON, 27, 13, True), False),
+        ("form_a_512x20x27x13", inp_a, {}, (BATCH, HORIZON, 27, 13, False), False),
+        ("form_b_1x20x27x13", inp_1, {}, (1, HORIZON, 27, 13, True), False),
+        ("form_b_512x20x27x13_runtime_sized", inp_b, {"runtime_sized": True},
+         (BATCH, HORIZON, 27, 13, True), False),
+        ("form_b_1x20x27x13_runtime_sized", inp_1, {"runtime_sized": True},
+         (1, HORIZON, 27, 13, True), False),
+        ("form_b_512x20x27x13_f64", tuple(t.double() for t in inp_b), {},
+         (BATCH, HORIZON, 27, 13, True), True),
+        ("form_b_64x20x27x45", kernel_inputs["form_b_64x20x27x45"], {},
+         (64, HORIZON, 27, 45, True), False),
+        ("form_a_64x20x27x45", kernel_inputs["form_a_64x20x27x45"], {},
+         (64, HORIZON, 27, 45, False), False),
+        ("form_b_64x200x27x13", kernel_inputs["form_b_64x200x27x13"], {},
+         (64, 200, 27, 13, True), False),
+    ]
+    kernel_times = {}
+    for label, inp, opts, shape, is_f64 in timed:
+        nbytes, flops = riccati_work(*shape, elem_bytes=8 if is_f64 else 4)
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        t_ops = flops / (H100_FP64_FLOPS if is_f64 else H100_FP32_FLOPS) * 1e3
+        t = kernel_ms(inp, **opts)
+        kernel_times[label] = {
+            "ms": t, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops,
+        }
+        log(f"  {label}: {t:.4f} ms; bound {max(t_bytes, t_ops):.4f} ms "
+            f"({nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms, {flops / 1e9:.3f} GFLOP -> {t_ops:.4f} ms)")
+    results["kernel_times"] = kernel_times
+    ms = kernel_times["form_b_512x20x27x13"]["ms"]
+    ms_a = kernel_times["form_a_512x20x27x13"]["ms"]
+    ms_1 = kernel_times["form_b_1x20x27x13"]["ms"]
+    # one eager call between two events on an idle card, as a caller that
+    # waits for each result sees it
+    single_ms = cuda_median_ms(lambda: riccati.riccati_backward(*inp_b, reg=reg), reps=50)
+    single_ms_1 = cuda_median_ms(lambda: riccati.riccati_backward(*inp_1, reg=reg), reps=50)
     plain_ms = cuda_median_ms(
         lambda: riccati.riccati_backward_plain(*inp_b, reg=reg), reps=3, warmup=1)
+    inp_c = kernel_inputs["form_b_64x20x27x45"]
+    plain_ms_wide = cuda_median_ms(
+        lambda: riccati.riccati_backward_plain(*inp_c, reg=reg), reps=3, warmup=1)
 
     def riccati_library(A, B, d, grads, hess, gf, Hf):
         """The same recursion on torch.linalg's batched Cholesky (a yardstick
@@ -480,14 +629,12 @@ def main():
         results["breakdown_batch1"] = phase_breakdown(
             "batch 1", params1, obs[-1:].clone(), state)
 
-    nbytes, flops = riccati_work(BATCH, HORIZON, 27, 13, invariant=True)
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_FP32_FLOPS * 1e3
-    bound_ms = max(t_bytes, t_ops)
-    log(f"  riccati_backward form (b) 512x20x27x13: {ms:.4f} ms; form (a): {ms_a:.4f} ms; "
-        f"form (b) batch 1: {ms_1:.4f} ms")
-    log(f"  plain version: {plain_ms:.2f} ms; torch.linalg loop: {library_ms:.2f} ms")
-    log(f"  bound: {nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms, {flops / 1e9:.2f} GFLOP fp32 -> "
-        f"{t_ops:.4f} ms")
+    main = kernel_times["form_b_512x20x27x13"]
+    log(f"  riccati_backward form (b) 512x20x27x13: {ms:.4f} ms per launch ({single_ms:.4f} ms "
+        f"as one eager call); form (a): {ms_a:.4f} ms; form (b) batch 1: {ms_1:.4f} ms "
+        f"({single_ms_1:.4f} ms as one eager call)")
+    log(f"  plain version: {plain_ms:.2f} ms ({plain_ms_wide:.2f} ms at 64x20x27x45); "
+        f"torch.linalg loop: {library_ms:.2f} ms")
     kernels = {
         "kernels": [
             {
@@ -499,12 +646,20 @@ def main():
                 "max_abs_err": max_abs_err,
                 "ms": ms,
                 "plain_ms": plain_ms,
-                "bound_ms": bound_ms,
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bound_ms": main["bound_ms"],
+                "bound_by": main["bound_by"],
                 "library_ms": library_ms,
                 "shape": "form (b), batch 512, N 20, nx 27, nu 13, float32",
                 "ms_form_a": ms_a,
                 "ms_batch1": ms_1,
+                "ms_single_call": single_ms,
+                "ms_single_call_batch1": single_ms_1,
+                "ms_runtime_sized": kernel_times["form_b_512x20x27x13_runtime_sized"]["ms"],
+                "ms_runtime_sized_batch1": kernel_times["form_b_1x20x27x13_runtime_sized"]["ms"],
+                "ms_float64": kernel_times["form_b_512x20x27x13_f64"]["ms"],
+                "ms_wide_64x20x27x45": kernel_times["form_b_64x20x27x45"]["ms"],
+                "plain_ms_wide_64x20x27x45": plain_ms_wide,
+                "ms_long_64x200x27x13": kernel_times["form_b_64x200x27x13"]["ms"],
                 "launches_batched_path": launches_batched,
                 "launches_replan_path": launches_replan,
                 "launches_per_solve": al_cfg.iterations,

@@ -8,10 +8,12 @@ These tests need an NVIDIA GPU and nvcc; elsewhere they skip.  Run them with
 port do not need.)
 
 ``chip_smoke.py`` holds the kernel against its plain version at the
-main-path shapes; these cover the runtime-sized parts: the widest and the
-narrowest input block, a single stage, a shape whose shared memory exceeds
-the 48 KB static limit (the opt-in attribute path), both input forms, and
-what the wrapper refuses.
+main-path shapes; these cover the rest: the narrowest input block and the
+widths on each side of the route switch (nu = 24, 25, 32, 45), a single stage
+and a long horizon, odd widths (rows that cannot be copied 16 bytes at a
+time), a shape whose shared memory exceeds the 48 KB static limit (the opt-in
+attribute path), both input forms, the instances compiled for the shipped
+widths against the runtime-sized one, float64, and what the wrapper refuses.
 """
 
 import numpy as np
@@ -53,9 +55,18 @@ def make_inputs(Bt, N, nx, nu, seed, invariant=False):
     [
         (3, 1, 4, 2),  # a single stage
         (5, 7, 6, 1),  # one input
-        (4, 9, 10, 24),  # the widest input block the kernel takes
-        (2, 5, 60, 20),  # 84 KB of shared memory: above the static limit
+        (3, 6, 12, 16),  # the widest register elimination of the runtime-sized instance
+        (3, 6, 12, 17),  # the narrowest elimination in shared memory
+        (2, 3, 70, 16),  # more column groups than warps: two passes of the register elimination
+        (4, 9, 10, 24),  # the widest input block of the clamped route
+        (4, 9, 10, 25),  # the narrowest of the jittered route
+        (3, 6, 12, 32),  # a full warp of input columns
+        (3, 8, 27, 45),  # the frictional three-object width
+        (3, 5, 7, 4),  # odd nx and nz: element-sized copies only
+        (2, 5, 60, 20),  # 143 KB of shared memory: above the static limit
         (300, 20, 27, 13),  # more blocks than SMs, main-path widths
+        (5, 20, 18, 10),  # the arm-only widths
+        (2, 200, 27, 13),  # a long horizon
     ],
     ids=lambda s: "x".join(map(str, s)),
 )
@@ -73,6 +84,46 @@ def test_kernel_matches_plain_float64(card, shape, invariant):
     assert K.shape == K_ref.shape and K.dtype == torch.float32
     assert float((K.double() - K_ref).abs().max()) < 1e-4
     assert float((kff.double() - kff_ref).abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize(
+    "shape",
+    [(3, 1, 4, 2), (3, 6, 12, 16), (3, 6, 12, 17), (4, 9, 10, 24), (4, 9, 10, 25),
+     (3, 8, 27, 45), (3, 5, 7, 4), (16, 20, 27, 13), (2, 200, 27, 13)],
+    ids=lambda s: "x".join(map(str, s)),
+)
+@pytest.mark.parametrize("invariant", [False, True], ids=["form_a", "form_b"])
+def test_float64_kernel_matches_plain_to_rounding(card, shape, invariant):
+    """Both sides float64: they differ in summation order only, so 1e-10 of
+    the largest entry, tight enough to catch an indexing fault at a tile edge
+    that a float32 comparison would let through."""
+    arrays = make_inputs(*shape, seed=sum(shape), invariant=invariant)
+    f64 = tuple(torch.as_tensor(a, dtype=torch.float64, device=card) for a in arrays)
+    K, kff = riccati.riccati_backward(*f64, reg=REG)
+    torch.cuda.synchronize()
+    K_ref, kff_ref = riccati.riccati_backward_plain(*f64, reg=REG)
+    assert K.dtype == torch.float64
+    scale = max(1.0, float(K_ref.abs().max()))
+    assert float((K - K_ref).abs().max()) < 1e-10 * scale
+    assert float((kff - kff_ref).abs().max()) < 1e-10 * scale
+
+
+@pytest.mark.parametrize("shape", [(64, 20, 27, 13), (64, 20, 18, 10)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("invariant", [False, True], ids=["form_a", "form_b"])
+def test_specialised_instance_matches_runtime_sized(card, shape, invariant):
+    """The instances compiled for the shipped widths and the runtime-sized one
+    compute the same recursion and differ at most in float32 rounding (the
+    compiler may order the products' sums differently): 2e-5 of the largest
+    entry, against 3e-6 between either and float64 on an H100."""
+    arrays = make_inputs(*shape, seed=sum(shape), invariant=invariant)
+    f32 = tuple(torch.as_tensor(a, dtype=torch.float32, device=card) for a in arrays)
+    K_s, kff_s = riccati.riccati_backward(*f32, reg=REG)
+    K_r, kff_r = riccati.riccati_backward(*f32, reg=REG, runtime_sized=True)
+    torch.cuda.synchronize()
+    scale = max(1.0, float(K_r.abs().max()))
+    assert float((K_s - K_r).abs().max()) < 2e-5 * scale
+    assert float((kff_s - kff_r).abs().max()) < 2e-5 * scale
 
 
 def test_kernel_runs_on_the_current_stream(card):
@@ -96,8 +147,12 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(card):
     arrays = make_inputs(2, 3, 4, 2, seed=2)
     f32 = [torch.as_tensor(a, dtype=torch.float32, device=card) for a in arrays]
     before = riccati.launch_count
-    with pytest.raises(TypeError, match="float32"):
-        riccati.riccati_backward(*(t.double() for t in f32), reg=REG)
+    with pytest.raises(TypeError, match="one dtype"):  # mixed dtypes
+        bad = list(f32)
+        bad[4] = f32[4].double()
+        riccati.riccati_backward(*bad, reg=REG)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        riccati.riccati_backward(*(t.bfloat16() for t in f32), reg=REG)
     with pytest.raises(ValueError, match="contiguous"):
         bad = list(f32)
         bad[4] = f32[4].transpose(-1, -2)
@@ -106,8 +161,8 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(card):
         bad = list(f32)
         bad[0] = f32[0].cpu()
         riccati.riccati_backward(*bad, reg=REG)
-    with pytest.raises(NotImplementedError, match="nu = 25"):
-        wide = make_inputs(2, 3, 4, 25, seed=3)
+    with pytest.raises(ValueError, match="shared memory"):
+        huge = make_inputs(1, 1, 100, 60, seed=3)
         riccati.riccati_backward(
-            *(torch.as_tensor(a, dtype=torch.float32, device=card) for a in wide), reg=REG)
+            *(torch.as_tensor(a, dtype=torch.float32, device=card) for a in huge), reg=REG)
     assert riccati.launch_count == before  # nothing was launched

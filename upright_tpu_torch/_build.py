@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into ``build/lib<name>.so`` (``build/`` is git-ignored), then
 loaded with ``ctypes``.  No PyTorch headers are involved, so a build takes
-seconds.  The library is rebuilt when the source is newer than it.
+seconds.  The library is rebuilt when any file under ``csrc/`` (the source or
+a header it includes) is newer than it.
 """
 
 from __future__ import annotations
@@ -53,7 +54,8 @@ def load_library(name, extra_flags=(), verbose=False):
     if name in _LIBS:
         return _LIBS[name]
     cmd, src, out = build_command(name, extra_flags)
-    if not out.exists() or out.stat().st_mtime < src.stat().st_mtime:
+    newest = max(f.stat().st_mtime for f in CSRC_DIR.iterdir())
+    if not out.exists() or out.stat().st_mtime < newest:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
         cmd[cmd.index(str(out))] = str(tmp)

@@ -15,6 +15,15 @@ Two input forms:
   (b) stage-invariant     A (nx, nx),        B (nx, nu), one pair for the
       whole batch (linear dynamics).  The kernel takes it through zero
       strides; the broadcast is never materialised.
+
+Two routes for the factorisation of Quu, switched at ``MAX_NU`` as in the
+reference: up to 24 inputs the pivots are clamped, ``sqrt(max(s, 1e-12))``;
+above, Quu gets a relative diagonal jitter and, per instance and stage, a
+larger one where the first factorisation fails, and NaN where both do.
+
+The kernel is compiled for float32 and float64.  float32 calls at the widths
+of the shipped configurations (nx/nu = 27/13 and 18/10) go to instances with
+compile-time sizes; every other shape, and float64, to a runtime-sized one.
 """
 
 from __future__ import annotations
@@ -26,10 +35,19 @@ import torch
 from upright_tpu_torch._build import load_library
 
 # Input-dimension cutoff of the clamped elementwise Cholesky.  Above it the
-# reference switches to a blocked factorisation with relative jitter and a
-# NaN fallback (upright_tpu/solver/al.py); that route is not ported yet.
+# reference (upright_tpu/solver/al.py, _backward_pass) factors with a relative
+# diagonal jitter instead of a clamp, and falls back to a larger jitter where
+# that fails; the kernel and the plain version switch at the same width.
 MAX_NU = 24
 PIVOT_EPS = 1e-12
+JITTER = (1e-7, 1e-3)  # relative to max(trace(Quu) / nu, JITTER_FLOOR)
+JITTER_FLOOR = 1e-9
+MAX_SMEM_BYTES = 232448  # dynamic shared memory one block can have on an H100
+
+# The kernel's instantiations, in the order of csrc/riccati.cu's pick_instance
+INSTANCES = ("float32 nx=27 nu=13", "float32 nx=18 nu=10",
+             "float32 runtime-sized", "float64 runtime-sized")
+_ELEM_BYTES = {torch.float32: 4, torch.float64: 8}
 
 # Number of kernel launches made by `riccati_backward` (CUDA path only).
 launch_count = 0
@@ -42,12 +60,14 @@ def _library():
     if _lib is None:
         lib = load_library("riccati")
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.riccati_backward_f32.argtypes = (
-            [p] * 9 + [i, i, i, i] + [ll, ll, ll, ll] + [ctypes.c_float, p]
+        lib.riccati_backward.argtypes = (
+            [p] * 9 + [i] * 5 + [ll] * 4 + [ctypes.c_double, i, p]
         )
-        lib.riccati_backward_f32.restype = ctypes.c_int
-        lib.riccati_backward_smem_bytes.argtypes = [i, i]
+        lib.riccati_backward.restype = ctypes.c_int
+        lib.riccati_backward_smem_bytes.argtypes = [i, i, i, i]
         lib.riccati_backward_smem_bytes.restype = ctypes.c_longlong
+        lib.riccati_backward_instance_attrs.argtypes = [i, ctypes.POINTER(i)]
+        lib.riccati_backward_instance_attrs.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -59,11 +79,6 @@ def _check_shapes(A, B, d, grads, hess, gf, Hf):
     Bt, N, nx = d.shape
     nu = B.shape[-1]
     nz = nx + nu
-    if nu > MAX_NU:
-        raise NotImplementedError(
-            f"riccati_backward: nu = {nu} > {MAX_NU} needs the blocked "
-            "factorisation with jitter and NaN fallback, which is not ported yet"
-        )
     invariant = A.ndim == 2
     lead = () if invariant else (Bt, N)
     expect = {
@@ -105,6 +120,24 @@ def _chol_solve(L, R):
     return X
 
 
+def _solve_jittered(Quu, rhs):
+    """-Quu^-1 rhs by the reference's route for wide input blocks: factor
+    Quu + 1e-7 s I (s = max(trace(Quu) / nu, 1e-9), no pivot clamp); where
+    that fails, per instance, factor Quu + 1e-3 s I instead; where both fail
+    the solution is NaN, as the reference's NaN factor makes it."""
+    nu = Quu.shape[-1]
+    eye_u = torch.eye(nu, dtype=Quu.dtype, device=Quu.device)
+    scale = torch.clamp(Quu.diagonal(dim1=-2, dim2=-1).sum(-1) / nu, min=JITTER_FLOOR)
+    scale = scale[:, None, None]
+    L, bad = torch.linalg.cholesky_ex(Quu + JITTER[0] * scale * eye_u)
+    L_safe, bad_safe = torch.linalg.cholesky_ex(Quu + JITTER[1] * scale * eye_u)
+    bad, bad_safe = (bad != 0)[:, None, None], (bad_safe != 0)[:, None, None]
+    # a failed factor is unspecified below the failing pivot: never solve with it
+    L = torch.where(bad, torch.where(bad_safe, eye_u, L_safe), L)
+    sol = -torch.cholesky_solve(rhs, L)
+    return torch.where(bad & bad_safe, torch.full_like(sol, float("nan")), sol)
+
+
 def riccati_backward_plain(A, B, d, grads, hess, gf, Hf, reg=1e-6):
     """Plain PyTorch version of the kernel: multiple-shooting Riccati
     recursion with defects, batched over instances, a Python loop over
@@ -124,7 +157,10 @@ def riccati_backward_plain(A, B, d, grads, hess, gf, Hf, reg=1e-6):
         Quu = Q[:, nx:, nx:] + reg * eye_u
         Qux = Q[:, nx:, :nx]
         rhs = torch.cat([Qux, q[:, nx:, None]], dim=-1)
-        sol = -_chol_solve(_chol_factor_clamped(Quu), rhs)
+        if nu <= MAX_NU:
+            sol = -_chol_solve(_chol_factor_clamped(Quu), rhs)
+        else:
+            sol = _solve_jittered(Quu, rhs)
         K_k, kff_k = sol[..., :nx], sol[..., nx]
         P = Q[:, :nx, :nx] + Qux.transpose(-1, -2) @ K_k
         P = 0.5 * (P + P.transpose(-1, -2))
@@ -133,23 +169,47 @@ def riccati_backward_plain(A, B, d, grads, hess, gf, Hf, reg=1e-6):
     return torch.stack(Ks, dim=1), torch.stack(kffs, dim=1)
 
 
-def _riccati_backward_cuda(A, B, d, grads, hess, gf, Hf, reg):
+def instance_attrs():
+    """Registers per thread, bytes of local memory per thread and bytes of
+    static shared memory of each instantiation of the kernel, by name."""
+    lib = _library()
+    out = {}
+    for which, name in enumerate(INSTANCES):
+        buf = (ctypes.c_int * 3)()
+        err = lib.riccati_backward_instance_attrs(which, buf)
+        if err != 0:
+            raise RuntimeError(f"cudaFuncGetAttributes failed for {name} with CUDA error {err}")
+        out[name] = {"registers": buf[0], "local_bytes": buf[1], "static_smem_bytes": buf[2]}
+    return out
+
+
+def smem_bytes(nx, nu, dtype=torch.float32, runtime_sized=False):
+    """Bytes of dynamic shared memory one block of the kernel takes."""
+    return _library().riccati_backward_smem_bytes(nx, nu, _ELEM_BYTES[dtype], int(runtime_sized))
+
+
+def _riccati_backward_cuda(A, B, d, grads, hess, gf, Hf, reg, runtime_sized=False):
     global launch_count
     Bt, N, nx, nu, invariant = _check_shapes(A, B, d, grads, hess, gf, Hf)
+    if d.dtype not in _ELEM_BYTES:
+        raise TypeError(f"d is {d.dtype}; the Riccati kernel takes float32 or float64")
     tensors = {"A": A, "B": B, "d": d, "grads": grads, "hess": hess, "gf": gf, "Hf": Hf}
     for name, t in tensors.items():
         if not t.is_cuda or t.device != d.device:
             raise ValueError(f"{name} is on {t.device}; every input must be on {d.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} is {t.dtype}; the Riccati kernel takes float32")
+        if t.dtype != d.dtype:
+            raise TypeError(f"{name} is {t.dtype} and d is {d.dtype}; the Riccati kernel "
+                            "takes all its inputs in one dtype")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     lib = _library()
-    if lib.riccati_backward_smem_bytes(nx, nu) > 232448:
-        raise ValueError(f"nx = {nx}, nu = {nu} exceed one block's shared memory")
+    need = smem_bytes(nx, nu, d.dtype, runtime_sized)
+    if need > MAX_SMEM_BYTES:
+        raise ValueError(f"nx = {nx}, nu = {nu} in {d.dtype} need {need} bytes of shared "
+                         f"memory; one block has {MAX_SMEM_BYTES}")
 
-    K = torch.empty((Bt, N, nu, nx), dtype=torch.float32, device=d.device)
-    kff = torch.empty((Bt, N, nu), dtype=torch.float32, device=d.device)
+    K = torch.empty((Bt, N, nu, nx), dtype=d.dtype, device=d.device)
+    kff = torch.empty((Bt, N, nu), dtype=d.dtype, device=d.device)
     if invariant:
         sA = sB = (0, 0)
     else:
@@ -157,28 +217,31 @@ def _riccati_backward_cuda(A, B, d, grads, hess, gf, Hf, reg):
         sB = (N * nx * nu, nx * nu)
     with torch.cuda.device(d.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.riccati_backward_f32(
+        err = lib.riccati_backward(
             A.data_ptr(), B.data_ptr(), d.data_ptr(), grads.data_ptr(),
             hess.data_ptr(), gf.data_ptr(), Hf.data_ptr(), K.data_ptr(),
-            kff.data_ptr(), Bt, N, nx, nu, sA[0], sA[1], sB[0], sB[1],
-            float(reg), stream,
+            kff.data_ptr(), _ELEM_BYTES[d.dtype], Bt, N, nx, nu,
+            sA[0], sA[1], sB[0], sB[1], float(reg), int(runtime_sized), stream,
         )
     if err != 0:
-        raise RuntimeError(f"riccati_backward_f32 launch failed with CUDA error {err}")
+        raise RuntimeError(f"riccati_backward launch failed with CUDA error {err}")
     launch_count += 1
     return K, kff
 
 
-def riccati_backward(A, B, d, grads, hess, gf, Hf, reg=1e-6):
+def riccati_backward(A, B, d, grads, hess, gf, Hf, reg=1e-6, runtime_sized=False):
     """Batched Riccati backward pass.
 
     d: (Bt, N, nx), grads: (Bt, N, nz), hess: (Bt, N, nz, nz), gf: (Bt, nx),
     Hf: (Bt, nx, nx); A, B per stage (form a) or stage-invariant (form b).
     Returns (K (Bt, N, nu, nx), kff (Bt, N, nu)).
 
-    CUDA tensors go to the kernel (float32, contiguous) or raise; CPU tensors
-    run the plain version.
+    CUDA tensors go to the kernel (float32 or float64, all of one dtype,
+    contiguous, any nu that fits a block's shared memory) or raise; CPU
+    tensors run the plain version.  ``runtime_sized`` keeps a float32 CUDA
+    call off the instances compiled for the shipped widths (for comparing
+    the two; the results agree to float32 rounding).
     """
     if d.is_cuda:
-        return _riccati_backward_cuda(A, B, d, grads, hess, gf, Hf, reg)
+        return _riccati_backward_cuda(A, B, d, grads, hess, gf, Hf, reg, runtime_sized)
     return riccati_backward_plain(A, B, d, grads, hess, gf, Hf, reg)
