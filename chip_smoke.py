@@ -16,7 +16,8 @@ holds every hand-written kernel against its plain PyTorch version:
      warm-started AL-SQP iteration per solve, solves/s over 10 re-solves;
   5. the steady replan at batch 1: shift -> heal -> solve -> policy;
   6. kernel times (specialised and runtime-sized instances, both forms, batch
-     1, float64, nu = 45, N = 200), each beside its bound; then one JSON line
+     1, float64, nu = 45, N = 200), each as one eager call of the wrapper and
+     as the kernel's device time alone, beside its bound; then one JSON line
      describing each kernel (time, bound, launches), the card's name and
      power limit, and the final JSON line.
 
@@ -64,45 +65,6 @@ def check(cond, msg):
     log(f"  ok: {msg}")
 
 
-# ---------------------------------------------------------------------------
-# inputs for the kernel comparison (numpy, from a seed)
-# ---------------------------------------------------------------------------
-
-
-def random_batch(Bt, N, nx, nu, seed=0):
-    """Random SPD stage data, the conditioning the reference's kernel tests
-    use at small shapes (A = I + 0.2 G, unit-scale B)."""
-    rng = np.random.default_rng(seed)
-    A = rng.standard_normal((Bt, N, nx, nx)) * 0.2 + np.eye(nx)
-    B = rng.standard_normal((Bt, N, nx, nu))
-    d = rng.standard_normal((Bt, N, nx)) * 0.05
-    grads = rng.standard_normal((Bt, N, nx + nu))
-    M = rng.standard_normal((Bt, N, nx + nu, nx + nu))
-    hess = 0.1 * np.einsum("bkij,bklj->bkil", M, M) + np.eye(nx + nu)
-    gf = rng.standard_normal((Bt, nx))
-    Mf = rng.standard_normal((Bt, nx, nx))
-    Hf = 0.1 * np.einsum("bij,blj->bil", Mf, Mf) + np.eye(nx)
-    return A, B, d, grads, hess, gf, Hf
-
-
-def mpc_shape_batch(Bt, N, nx, nu, seed=0, invariant=False):
-    """Stage data at the main-path widths (A = I + 0.1 G, B = 0.1 G,
-    H = M M^T + 3 I); ``invariant`` gives one (A, B) pair for the batch."""
-    rng = np.random.default_rng(seed)
-    nz = nx + nu
-    lead = () if invariant else (Bt, N)
-    A = (rng.standard_normal(lead + (nx, nx)) * 0.1 + np.eye(nx)).astype(np.float32)
-    B = (rng.standard_normal(lead + (nx, nu)) * 0.1).astype(np.float32)
-    d = (rng.standard_normal((Bt, N, nx)) * 0.01).astype(np.float32)
-    g = rng.standard_normal((Bt, N, nz)).astype(np.float32)
-    Hh = (rng.standard_normal((Bt, N, nz, nz)) * 0.1).astype(np.float32)
-    H = Hh @ np.swapaxes(Hh, -1, -2) + 3 * np.eye(nz, dtype=np.float32)
-    gf = rng.standard_normal((Bt, nx)).astype(np.float32)
-    Hf_ = (rng.standard_normal((Bt, nx, nx)) * 0.1).astype(np.float32)
-    Hf = Hf_ @ np.swapaxes(Hf_, -1, -2) + np.eye(nx, dtype=np.float32)
-    return A, B, d, g, H, gf, Hf
-
-
 def riccati_work(Bt, N, nx, nu, invariant, elem_bytes=4):
     """(bytes, flops) the Riccati backward pass needs: each input read once,
     each output written once; the recursion's products, one factorisation
@@ -124,25 +86,6 @@ def riccati_work(Bt, N, nx, nu, invariant, elem_bytes=4):
         + 2 * nx * nx * nu + 2 * nx * nu  # Qux^T K, Qux^T kff
     )
     return elem_bytes * total_elems, Bt * N * per_stage_flops
-
-
-def fallback_batch(Bt=6, N=3, nx=6, nu=26, seed=7):
-    """A wide-input batch (per-stage dynamics) in which, at stage 1, B = 0 and
-    luu = diag(1, ..., 1, last): last = -1e-5 in instances 1 and 3 fails the
-    first jitter (1e-7 relative) and passes the second (1e-3); last = -1 in
-    instance 4 fails both.  Instances 0, 2 and 5 are ordinary."""
-    A, B, d, g, H, gf, Hf = (np.array(a, dtype=np.float64)
-                             for a in mpc_shape_batch(Bt, N, nx, nu, seed=seed))
-    nz = nx + nu
-    for b, last in ((1, -1e-5), (3, -1e-5), (4, -1.0)):
-        Hs = np.zeros((nz, nz))
-        Hs[:nx, :nx] = 2 * np.eye(nx)
-        Hs[nx:, nx:] = np.diag([1.0] * (nu - 1) + [last])
-        Hs[nx:, :nx] = 0.1 * np.arange(nu * nx).reshape(nu, nx) / (nu * nx)
-        Hs[:nx, nx:] = Hs[nx:, :nx].T
-        B[b, 1] = 0.0
-        H[b, 1] = Hs
-    return A, B, d, g, H, gf, Hf
 
 
 def main():
@@ -171,6 +114,7 @@ def main():
     from upright_tpu_torch.solver import al, riccati
     from upright_tpu_torch.solver.al import ALConfig, solve
     from upright_tpu_torch.solver.ocp import SolverState
+    from upright_tpu_torch.tools.stage_data import fallback_batch, random_batch, stage_data
 
     dev = torch.device("cuda")
     results = {}
@@ -192,9 +136,9 @@ def main():
 
     def cuda_launch_ms(fn, reps, inner=20):
         """Device time of one launch: `inner` launches captured back to back
-        in a CUDA graph, the replay timed, over `inner`.  (One eager call
-        between two events on an idle card also counts the host's time from
-        the first event to the launch.)"""
+        in a CUDA graph, the replay timed, over `inner`.  (cuda_median_ms of
+        one eager call on an idle card also counts the host's time from the
+        first event to the launch: argument checks, allocation of K, kff.)"""
         for _ in range(2):
             fn()
         torch.cuda.synchronize()
@@ -256,14 +200,14 @@ def main():
     KERNEL_RTOL_F64 = 1e-10
     cases = [
         ("form_a_8x6x5x3", random_batch(8, 6, 5, 3), False),
-        ("form_a_512x20x27x13", mpc_shape_batch(BATCH, HORIZON, 27, 13, seed=1), False),
-        ("form_b_512x20x27x13", mpc_shape_batch(BATCH, HORIZON, 27, 13, seed=2, invariant=True), True),
-        ("form_b_1x20x27x13", mpc_shape_batch(1, HORIZON, 27, 13, seed=3, invariant=True), True),
+        ("form_a_512x20x27x13", stage_data(BATCH, HORIZON, 27, 13, seed=1), False),
+        ("form_b_512x20x27x13", stage_data(BATCH, HORIZON, 27, 13, seed=2, invariant=True), True),
+        ("form_b_1x20x27x13", stage_data(1, HORIZON, 27, 13, seed=3, invariant=True), True),
         # the wide-input route (relative jitter instead of the pivot clamp) at
         # the width of the frictional multi-object problems
-        ("form_a_64x20x27x45", mpc_shape_batch(64, HORIZON, 27, 45, seed=4), False),
-        ("form_b_64x20x27x45", mpc_shape_batch(64, HORIZON, 27, 45, seed=5, invariant=True), True),
-        ("form_b_64x200x27x13", mpc_shape_batch(64, 200, 27, 13, seed=6, invariant=True), True),
+        ("form_a_64x20x27x45", stage_data(64, HORIZON, 27, 45, seed=4), False),
+        ("form_b_64x20x27x45", stage_data(64, HORIZON, 27, 45, seed=5, invariant=True), True),
+        ("form_b_64x200x27x13", stage_data(64, 200, 27, 13, seed=6, invariant=True), True),
     ]
     kernel_inputs = {}
     max_abs_err = 0.0
@@ -293,7 +237,7 @@ def main():
         compare(name + "_f64", K64, kff64, K_ref, kff_ref, KERNEL_RTOL_F64, relative=True)
         if f32[-1].shape[-1] == 27 and f32[1].shape[-1] == 13:
             # the runtime-sized float32 instance at a shape that has its own
-            K_rt, kff_rt = riccati.riccati_backward(*f32, reg=reg, runtime_sized=True)
+            K_rt, kff_rt = riccati._riccati_backward_cuda(*f32, reg, runtime_sized=True)
             max_abs_err = max(max_abs_err, compare(name + "_runtime_sized", K_rt, kff_rt,
                                                    K_ref, kff_ref, KERNEL_ATOL, relative=False))
         kernel_inputs[name] = f32
@@ -472,53 +416,49 @@ def main():
     results.update(replan_ms=replan_ms)
 
     # -- 6. kernel times at the main-path shapes -------------------------------
-    log("== 6. kernel times (CUDA events, median)")
+    log("== 6. kernel times (CUDA events, median of 50): one eager call of the wrapper, "
+        "and per launch of 20 captured back to back in a CUDA graph")
     inp_b = kernel_inputs["form_b_512x20x27x13"]
     inp_a = kernel_inputs["form_a_512x20x27x13"]
     inp_1 = kernel_inputs["form_b_1x20x27x13"]
 
-    def kernel_ms(inp, **opts):
-        return cuda_launch_ms(lambda: riccati.riccati_backward(*inp, reg=reg, **opts), reps=50)
-
-    # (label, inputs, wrapper options, shape for the bound, float64?)
+    # (label, inputs, runtime-sized instance?, shape for the bound, float64?)
     timed = [
-        ("form_b_512x20x27x13", inp_b, {}, (BATCH, HORIZON, 27, 13, True), False),
-        ("form_a_512x20x27x13", inp_a, {}, (BATCH, HORIZON, 27, 13, False), False),
-        ("form_b_1x20x27x13", inp_1, {}, (1, HORIZON, 27, 13, True), False),
-        ("form_b_512x20x27x13_runtime_sized", inp_b, {"runtime_sized": True},
-         (BATCH, HORIZON, 27, 13, True), False),
-        ("form_b_1x20x27x13_runtime_sized", inp_1, {"runtime_sized": True},
-         (1, HORIZON, 27, 13, True), False),
-        ("form_b_512x20x27x13_f64", tuple(t.double() for t in inp_b), {},
+        ("form_b_512x20x27x13", inp_b, False, (BATCH, HORIZON, 27, 13, True), False),
+        ("form_a_512x20x27x13", inp_a, False, (BATCH, HORIZON, 27, 13, False), False),
+        ("form_b_1x20x27x13", inp_1, False, (1, HORIZON, 27, 13, True), False),
+        ("form_b_512x20x27x13_runtime_sized", inp_b, True, (BATCH, HORIZON, 27, 13, True), False),
+        ("form_b_1x20x27x13_runtime_sized", inp_1, True, (1, HORIZON, 27, 13, True), False),
+        ("form_b_512x20x27x13_f64", tuple(t.double() for t in inp_b), False,
          (BATCH, HORIZON, 27, 13, True), True),
-        ("form_b_64x20x27x45", kernel_inputs["form_b_64x20x27x45"], {},
+        ("form_b_64x20x27x45", kernel_inputs["form_b_64x20x27x45"], False,
          (64, HORIZON, 27, 45, True), False),
-        ("form_a_64x20x27x45", kernel_inputs["form_a_64x20x27x45"], {},
+        ("form_a_64x20x27x45", kernel_inputs["form_a_64x20x27x45"], False,
          (64, HORIZON, 27, 45, False), False),
-        ("form_b_64x200x27x13", kernel_inputs["form_b_64x200x27x13"], {},
+        ("form_b_64x200x27x13", kernel_inputs["form_b_64x200x27x13"], False,
          (64, 200, 27, 13, True), False),
     ]
+    # "ms" is one eager call of the wrapper between two events on an idle card,
+    # as a caller that waits for each result sees it; "ms_per_launch" is the
+    # kernel's device time alone
     kernel_times = {}
-    for label, inp, opts, shape, is_f64 in timed:
+    for label, inp, runtime_sized, shape, is_f64 in timed:
         nbytes, flops = riccati_work(*shape, elem_bytes=8 if is_f64 else 4)
         t_bytes = nbytes / H100_BYTES_PER_S * 1e3
         t_ops = flops / (H100_FP64_FLOPS if is_f64 else H100_FP32_FLOPS) * 1e3
-        t = kernel_ms(inp, **opts)
+        if runtime_sized:
+            call = lambda: riccati._riccati_backward_cuda(*inp, reg, runtime_sized=True)  # noqa: E731
+        else:
+            call = lambda: riccati.riccati_backward(*inp, reg=reg)  # noqa: E731
+        t, t_launch = cuda_median_ms(call, reps=50), cuda_launch_ms(call, reps=50)
         kernel_times[label] = {
-            "ms": t, "bound_ms": max(t_bytes, t_ops),
+            "ms": t, "ms_per_launch": t_launch, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "flops": flops,
         }
-        log(f"  {label}: {t:.4f} ms; bound {max(t_bytes, t_ops):.4f} ms "
+        log(f"  {label}: {t:.4f} ms ({t_launch:.4f} per launch); bound {max(t_bytes, t_ops):.4f} ms "
             f"({nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms, {flops / 1e9:.3f} GFLOP -> {t_ops:.4f} ms)")
     results["kernel_times"] = kernel_times
-    ms = kernel_times["form_b_512x20x27x13"]["ms"]
-    ms_a = kernel_times["form_a_512x20x27x13"]["ms"]
-    ms_1 = kernel_times["form_b_1x20x27x13"]["ms"]
-    # one eager call between two events on an idle card, as a caller that
-    # waits for each result sees it
-    single_ms = cuda_median_ms(lambda: riccati.riccati_backward(*inp_b, reg=reg), reps=50)
-    single_ms_1 = cuda_median_ms(lambda: riccati.riccati_backward(*inp_1, reg=reg), reps=50)
     plain_ms = cuda_median_ms(
         lambda: riccati.riccati_backward_plain(*inp_b, reg=reg), reps=3, warmup=1)
     inp_c = kernel_inputs["form_b_64x20x27x45"]
@@ -629,10 +569,10 @@ def main():
         results["breakdown_batch1"] = phase_breakdown(
             "batch 1", params1, obs[-1:].clone(), state)
 
+    def t_ms(label, key="ms"):
+        return round(kernel_times[label][key], 6)
+
     main = kernel_times["form_b_512x20x27x13"]
-    log(f"  riccati_backward form (b) 512x20x27x13: {ms:.4f} ms per launch ({single_ms:.4f} ms "
-        f"as one eager call); form (a): {ms_a:.4f} ms; form (b) batch 1: {ms_1:.4f} ms "
-        f"({single_ms_1:.4f} ms as one eager call)")
     log(f"  plain version: {plain_ms:.2f} ms ({plain_ms_wide:.2f} ms at 64x20x27x45); "
         f"torch.linalg loop: {library_ms:.2f} ms")
     kernels = {
@@ -644,22 +584,29 @@ def main():
                 "replaces": "upright_tpu/solver/pallas_riccati.py:186",
                 "launches": launches_batched + launches_replan,
                 "max_abs_err": max_abs_err,
-                "ms": ms,
+                "ms": t_ms("form_b_512x20x27x13"),
                 "plain_ms": plain_ms,
                 "bound_ms": main["bound_ms"],
                 "bound_by": main["bound_by"],
                 "library_ms": library_ms,
                 "shape": "form (b), batch 512, N 20, nx 27, nu 13, float32",
-                "ms_form_a": ms_a,
-                "ms_batch1": ms_1,
-                "ms_single_call": single_ms,
-                "ms_single_call_batch1": single_ms_1,
-                "ms_runtime_sized": kernel_times["form_b_512x20x27x13_runtime_sized"]["ms"],
-                "ms_runtime_sized_batch1": kernel_times["form_b_1x20x27x13_runtime_sized"]["ms"],
-                "ms_float64": kernel_times["form_b_512x20x27x13_f64"]["ms"],
-                "ms_wide_64x20x27x45": kernel_times["form_b_64x20x27x45"]["ms"],
+                "ms_form_a": t_ms("form_a_512x20x27x13"),
+                "ms_batch1": t_ms("form_b_1x20x27x13"),
+                "ms_runtime_sized": t_ms("form_b_512x20x27x13_runtime_sized"),
+                "ms_runtime_sized_batch1": t_ms("form_b_1x20x27x13_runtime_sized"),
+                "ms_float64": t_ms("form_b_512x20x27x13_f64"),
+                "ms_wide_64x20x27x45": t_ms("form_b_64x20x27x45"),
+                "ms_long_64x200x27x13": t_ms("form_b_64x200x27x13"),
                 "plain_ms_wide_64x20x27x45": plain_ms_wide,
-                "ms_long_64x200x27x13": kernel_times["form_b_64x200x27x13"]["ms"],
+                # the kernel's device time alone, for each of the ms keys above
+                "ms_per_launch": {name: t_ms(label, "ms_per_launch") for name, label in (
+                    ("batch512", "form_b_512x20x27x13"), ("form_a", "form_a_512x20x27x13"),
+                    ("batch1", "form_b_1x20x27x13"),
+                    ("runtime_sized", "form_b_512x20x27x13_runtime_sized"),
+                    ("runtime_sized_batch1", "form_b_1x20x27x13_runtime_sized"),
+                    ("float64", "form_b_512x20x27x13_f64"),
+                    ("wide_64x20x27x45", "form_b_64x20x27x45"),
+                    ("long_64x200x27x13", "form_b_64x200x27x13"))},
                 "launches_batched_path": launches_batched,
                 "launches_replan_path": launches_replan,
                 "launches_per_solve": al_cfg.iterations,

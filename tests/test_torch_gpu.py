@@ -16,11 +16,11 @@ attribute path), both input forms, the instances compiled for the shipped
 widths against the runtime-sized one, float64, and what the wrapper refuses.
 """
 
-import numpy as np
 import pytest
 import torch
 
 from upright_tpu_torch.solver import riccati
+from upright_tpu_torch.tools.stage_data import stage_data
 
 pytestmark = pytest.mark.gpu
 
@@ -32,22 +32,6 @@ def card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
     return torch.device("cuda")
-
-
-def make_inputs(Bt, N, nx, nu, seed, invariant=False):
-    rng = np.random.default_rng(seed)
-    nz = nx + nu
-    lead = () if invariant else (Bt, N)
-    A = rng.standard_normal(lead + (nx, nx)) * 0.1 + np.eye(nx)
-    B = rng.standard_normal(lead + (nx, nu)) * 0.1
-    d = rng.standard_normal((Bt, N, nx)) * 0.01
-    g = rng.standard_normal((Bt, N, nz))
-    Hh = rng.standard_normal((Bt, N, nz, nz)) * 0.1
-    H = Hh @ np.swapaxes(Hh, -1, -2) + 3 * np.eye(nz)
-    gf = rng.standard_normal((Bt, nx))
-    Hf_ = rng.standard_normal((Bt, nx, nx)) * 0.1
-    Hf = Hf_ @ np.swapaxes(Hf_, -1, -2) + np.eye(nx)
-    return A, B, d, g, H, gf, Hf
 
 
 @pytest.mark.parametrize(
@@ -74,7 +58,7 @@ def make_inputs(Bt, N, nx, nu, seed, invariant=False):
 def test_kernel_matches_plain_float64(card, shape, invariant):
     """float32 kernel against the float64 plain version: K and kff are O(1)
     on this conditioning, 1e-4 absolute (see chip_smoke.py)."""
-    arrays = make_inputs(*shape, seed=sum(shape), invariant=invariant)
+    arrays = stage_data(*shape, seed=sum(shape), invariant=invariant)
     f32 = tuple(torch.as_tensor(a, dtype=torch.float32, device=card) for a in arrays)
     before = riccati.launch_count
     K, kff = riccati.riccati_backward(*f32, reg=REG)
@@ -97,7 +81,7 @@ def test_float64_kernel_matches_plain_to_rounding(card, shape, invariant):
     """Both sides float64: they differ in summation order only, so 1e-10 of
     the largest entry, tight enough to catch an indexing fault at a tile edge
     that a float32 comparison would let through."""
-    arrays = make_inputs(*shape, seed=sum(shape), invariant=invariant)
+    arrays = stage_data(*shape, seed=sum(shape), invariant=invariant)
     f64 = tuple(torch.as_tensor(a, dtype=torch.float64, device=card) for a in arrays)
     K, kff = riccati.riccati_backward(*f64, reg=REG)
     torch.cuda.synchronize()
@@ -116,10 +100,10 @@ def test_specialised_instance_matches_runtime_sized(card, shape, invariant):
     compute the same recursion and differ at most in float32 rounding (the
     compiler may order the products' sums differently): 2e-5 of the largest
     entry, against 3e-6 between either and float64 on an H100."""
-    arrays = make_inputs(*shape, seed=sum(shape), invariant=invariant)
+    arrays = stage_data(*shape, seed=sum(shape), invariant=invariant)
     f32 = tuple(torch.as_tensor(a, dtype=torch.float32, device=card) for a in arrays)
     K_s, kff_s = riccati.riccati_backward(*f32, reg=REG)
-    K_r, kff_r = riccati.riccati_backward(*f32, reg=REG, runtime_sized=True)
+    K_r, kff_r = riccati._riccati_backward_cuda(*f32, REG, runtime_sized=True)
     torch.cuda.synchronize()
     scale = max(1.0, float(K_r.abs().max()))
     assert float((K_s - K_r).abs().max()) < 2e-5 * scale
@@ -129,7 +113,7 @@ def test_specialised_instance_matches_runtime_sized(card, shape, invariant):
 def test_kernel_runs_on_the_current_stream(card):
     """Launched on a side stream, the kernel is ordered after the work that
     made its inputs on that stream and before the work that reads K."""
-    arrays = make_inputs(8, 20, 27, 13, seed=1, invariant=True)
+    arrays = stage_data(8, 20, 27, 13, seed=1, invariant=True)
     f32 = tuple(torch.as_tensor(a, dtype=torch.float32, device=card) for a in arrays)
     K_ref, _ = riccati.riccati_backward(*f32, reg=REG)
     side = torch.cuda.Stream()
@@ -144,7 +128,7 @@ def test_kernel_runs_on_the_current_stream(card):
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(card):
-    arrays = make_inputs(2, 3, 4, 2, seed=2)
+    arrays = stage_data(2, 3, 4, 2, seed=2)
     f32 = [torch.as_tensor(a, dtype=torch.float32, device=card) for a in arrays]
     before = riccati.launch_count
     with pytest.raises(TypeError, match="one dtype"):  # mixed dtypes
@@ -162,7 +146,7 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(card):
         bad[0] = f32[0].cpu()
         riccati.riccati_backward(*bad, reg=REG)
     with pytest.raises(ValueError, match="shared memory"):
-        huge = make_inputs(1, 1, 100, 60, seed=3)
+        huge = stage_data(1, 1, 100, 60, seed=3)
         riccati.riccati_backward(
             *(torch.as_tensor(a, dtype=torch.float32, device=card) for a in huge), reg=REG)
     assert riccati.launch_count == before  # nothing was launched

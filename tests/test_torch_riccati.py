@@ -14,39 +14,14 @@ from upright_tpu_torch.solver.riccati import (
     riccati_backward,
     riccati_backward_plain,
 )
+from upright_tpu_torch.tools.stage_data import random_batch, stage_data
 
 REG = 1e-6
 
 
-def random_batch(Bt, N, nx, nu, seed=0):
-    """The conditioning of tests/test_pallas_riccati.py::random_batch."""
-    rng = np.random.default_rng(seed)
-    A = rng.standard_normal((Bt, N, nx, nx)) * 0.2 + np.eye(nx)
-    B = rng.standard_normal((Bt, N, nx, nu))
-    d = rng.standard_normal((Bt, N, nx)) * 0.05
-    grads = rng.standard_normal((Bt, N, nx + nu))
-    M = rng.standard_normal((Bt, N, nx + nu, nx + nu))
-    hess = 0.1 * np.einsum("bkij,bklj->bkil", M, M) + np.eye(nx + nu)
-    gf = rng.standard_normal((Bt, nx))
-    Mf = rng.standard_normal((Bt, nx, nx))
-    Hf = 0.1 * np.einsum("bij,blj->bil", Mf, Mf) + np.eye(nx)
-    return A, B, d, grads, hess, gf, Hf
-
-
 def ab_batch(Bt, N=20, nx=27, nu=13, seed=0):
     """The conditioning of scripts/pallas_ab.py::make_inputs (float64)."""
-    rng = np.random.default_rng(seed)
-    nz = nx + nu
-    A = rng.standard_normal((Bt, N, nx, nx)) * 0.1 + np.eye(nx)
-    B = rng.standard_normal((Bt, N, nx, nu)) * 0.1
-    d = rng.standard_normal((Bt, N, nx)) * 0.01
-    g = rng.standard_normal((Bt, N, nz))
-    Hh = rng.standard_normal((Bt, N, nz, nz)) * 0.1
-    H = Hh @ np.swapaxes(Hh, -1, -2) + 3 * np.eye(nz)
-    gf = rng.standard_normal((Bt, nx))
-    Hf_ = rng.standard_normal((Bt, nx, nx)) * 0.1
-    Hf = Hf_ @ np.swapaxes(Hf_, -1, -2) + np.eye(nx)
-    return A, B, d, g, H, gf, Hf
+    return stage_data(Bt, N, nx, nu, seed=seed)
 
 
 def jax_sequential(arrays, N, nx, nu, reg=REG):

@@ -1,16 +1,19 @@
-"""The device code of the Riccati CUDA kernel, run on the CPU against the
-plain version.
+"""The device code of the Riccati CUDA kernel, run on the CPU against the JAX
+package's sequential backward pass and against the port's plain version.
 
 The kernel itself runs only on a card (``tests/test_torch_gpu.py``,
 ``chip_smoke.py``).  Here ``upright_tpu_torch/tools/emulate_riccati.py``
-compiles the device part of ``csrc/riccati.cu`` with the host's C++ compiler,
-one pthread per CUDA thread, and each instantiation is held to
-``riccati_backward_plain`` in float64: both sides float64 and differing in
-summation order only, so 1e-10 of the largest entry.  The specialised
-instances, float32 on the card, run in float64 here as well, which holds
-their indexing to the same 1e-10.  Shared memory starts as NaN patterns, so
-padding that leaks into a result shows.  Inputs are made with numpy from a
-seed.
+compiles the device code of ``csrc/riccati.cu`` with the host's C++ compiler,
+one pthread per CUDA thread, and each instantiation is run in float64: all
+sides float64 and differing in summation order only, so 1e-8 against
+``upright_tpu.solver.al._backward_pass`` (the tolerance the plain version is
+held to in ``test_torch_riccati.py``) and 1e-10 of the largest entry against
+the plain version.  The specialised instances, float32 on the card, run in
+float64 here as well, which holds their indexing to the same tolerances.
+Against the reference every case runs twice: with each asynchronous copy
+landing when it is started, and when its thread waits for it.  Shared memory
+starts as NaN patterns, so padding that leaks into a result shows.  Inputs
+are made with numpy from a seed.
 """
 
 import shutil
@@ -18,9 +21,11 @@ import shutil
 import numpy as np
 import pytest
 import torch
+from test_torch_riccati import jax_sequential
 
 from upright_tpu_torch.solver.riccati import riccati_backward_plain
 from upright_tpu_torch.tools import emulate_riccati
+from upright_tpu_torch.tools.stage_data import fallback_batch, stage_data
 
 REG = 1e-6
 
@@ -30,23 +35,6 @@ def harness(tmp_path_factory):
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to build the emulation harness")
     return emulate_riccati.build(tmp_path_factory.mktemp("riccati_emulation"))
-
-
-def make_inputs(Bt, N, nx, nu, seed, invariant):
-    """MPC-like conditioning (A = I + 0.1 G, B = 0.1 G, H = M M^T + 3 I)."""
-    rng = np.random.default_rng(seed)
-    nz = nx + nu
-    lead = () if invariant else (Bt, N)
-    A = rng.standard_normal(lead + (nx, nx)) * 0.1 + np.eye(nx)
-    B = rng.standard_normal(lead + (nx, nu)) * 0.1
-    d = rng.standard_normal((Bt, N, nx)) * 0.01
-    g = rng.standard_normal((Bt, N, nz))
-    Hh = rng.standard_normal((Bt, N, nz, nz)) * 0.1
-    H = Hh @ np.swapaxes(Hh, -1, -2) + 3 * np.eye(nz)
-    gf = rng.standard_normal((Bt, nx))
-    Hf_ = rng.standard_normal((Bt, nx, nx)) * 0.1
-    Hf = Hf_ @ np.swapaxes(Hf_, -1, -2) + np.eye(nx)
-    return [A, B, d, g, H, gf, Hf]
 
 
 def plain(arrays, reg):
@@ -81,7 +69,7 @@ def plain(arrays, reg):
     ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v),
 )
 def test_emulated_kernel_matches_plain(harness, instance, shape, invariant, rtol):
-    arrays = make_inputs(*shape, seed=sum(shape), invariant=invariant)
+    arrays = stage_data(*shape, seed=sum(shape), invariant=invariant)
     K, kff = emulate_riccati.run(harness, instance, arrays, REG)
     K_ref, kff_ref = plain(arrays, REG)
     scale = max(1.0, np.abs(K_ref).max())
@@ -90,28 +78,55 @@ def test_emulated_kernel_matches_plain(harness, instance, shape, invariant, rtol
     assert np.abs(kff - kff_ref).max() <= rtol * scale
 
 
-def test_emulated_kernel_takes_the_jitter_fallback_like_plain(harness):
+@pytest.mark.parametrize("late_copies", [False, True], ids=["copies_land_early", "copies_land_late"])
+@pytest.mark.parametrize(
+    "instance,shape",
+    [
+        ("d2713", (2, 4, 27, 13)),  # the main path's widths, compile-time sizes
+        ("d0", (2, 4, 27, 13)),  # the same on the runtime-sized instance
+        ("d1810", (2, 4, 18, 10)),  # the arm-only widths
+        ("d0", (2, 3, 9, 17)),  # elimination in shared memory, clamped
+        ("d0", (2, 3, 7, 25)),  # the first width of the jitter route
+        ("d0", (2, 3, 27, 45)),  # the frictional three-object width
+    ],
+    ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v),
+)
+def test_emulated_kernel_matches_jax_sequential(harness, instance, shape, late_copies):
+    """Per-stage dynamics (the reference's form), float64 on both sides."""
+    Bt, N, nx, nu = shape
+    arrays = stage_data(Bt, N, nx, nu, seed=nu)
+    K, kff = emulate_riccati.run(harness, instance, arrays, REG, late_copies=late_copies)
+    K_ref, k_ref = jax_sequential(arrays, N, nx, nu)
+    assert np.isfinite(K_ref).all()
+    np.testing.assert_allclose(K, K_ref, rtol=1e-8, atol=1e-11)
+    np.testing.assert_allclose(kff, k_ref, rtol=1e-8, atol=1e-11)
+
+
+@pytest.mark.parametrize("late_copies", [False, True], ids=["copies_land_early", "copies_land_late"])
+def test_emulated_kernel_takes_the_jitter_fallback_like_the_reference(harness, late_copies):
     """Stage 1 of instances 1 and 3 fails the first factorisation and passes
     the second (luu ends in -1e-5, B = 0 there), instance 4 fails both (-1):
-    NaN in exactly the plain version's entries, the rest equal to 1e-10."""
-    Bt, N, nx, nu = 5, 3, 6, 26
-    arrays = make_inputs(Bt, N, nx, nu, seed=7, invariant=False)
-    nz = nx + nu
-    for b, last in ((1, -1e-5), (3, -1e-5), (4, -1.0)):
-        Hs = np.zeros((nz, nz))
-        Hs[:nx, :nx] = 2 * np.eye(nx)
-        Hs[nx:, nx:] = np.diag([1.0] * (nu - 1) + [last])
-        Hs[nx:, :nx] = 0.1 * np.arange(nu * nx).reshape(nu, nx) / (nu * nx)
-        Hs[:nx, nx:] = Hs[nx:, :nx].T
-        arrays[1][b, 1] = 0.0
-        arrays[4][b, 1] = Hs
-    K, kff = emulate_riccati.run(harness, "d0", arrays, 0.0)
+    NaN in exactly the entries where the reference and the plain version have
+    it, the rest equal to the reference to 1e-8 and to the plain version to
+    1e-10 of the largest entry."""
+    arrays = fallback_batch()
+    Bt, N, nx = arrays[2].shape
+    nu = arrays[1].shape[-1]
+    K, kff = emulate_riccati.run(harness, "d0", arrays, 0.0, late_copies=late_copies)
+    K_jax, k_jax = jax_sequential(arrays, N, nx, nu, reg=0.0)
     K_ref, kff_ref = plain(arrays, 0.0)
+    # instance 4 is NaN from stage 1 back; instances 1 and 3 take the second
+    # factorisation at stage 1, whose huge gains make P indefinite, so both
+    # factorisations fail at stage 0; the rest is finite
     nan_stages = np.isnan(K_ref).all(axis=(2, 3))
-    assert nan_stages[4].tolist() == [True, True, False]
-    assert not nan_stages[[0, 2]].any() and not nan_stages[[1, 3], 1].any()
+    expect = np.zeros((Bt, N), dtype=bool)
+    expect[1, 0] = expect[3, 0] = expect[4, 0] = expect[4, 1] = True
+    np.testing.assert_array_equal(nan_stages, expect)
     assert np.abs(K_ref[[1, 3], 1]).max() > 10.0  # the second factorisation's gains
-    np.testing.assert_array_equal(np.isnan(K), np.isnan(K_ref))
-    np.testing.assert_array_equal(np.isnan(kff), np.isnan(kff_ref))
+    for ref in (K_jax, K_ref):
+        np.testing.assert_array_equal(np.isnan(K), np.isnan(ref))
+    for ref in (k_jax, kff_ref):
+        np.testing.assert_array_equal(np.isnan(kff), np.isnan(ref))
     ok = ~np.isnan(K_ref)
+    np.testing.assert_allclose(K[ok], K_jax[ok], rtol=1e-8, atol=1e-11)
     assert np.abs(K - K_ref)[ok].max() <= 1e-10 * np.abs(K_ref[ok]).max()

@@ -189,6 +189,10 @@ def smem_bytes(nx, nu, dtype=torch.float32, runtime_sized=False):
 
 
 def _riccati_backward_cuda(A, B, d, grads, hess, gf, Hf, reg, runtime_sized=False):
+    """Launch the kernel.  ``runtime_sized`` keeps a float32 call off the
+    instances compiled for the shipped widths: the card tests and the timing
+    tools set it to hold the two against each other (they agree to float32
+    rounding); the solver never does."""
     global launch_count
     Bt, N, nx, nu, invariant = _check_shapes(A, B, d, grads, hess, gf, Hf)
     if d.dtype not in _ELEM_BYTES:
@@ -229,7 +233,7 @@ def _riccati_backward_cuda(A, B, d, grads, hess, gf, Hf, reg, runtime_sized=Fals
     return K, kff
 
 
-def riccati_backward(A, B, d, grads, hess, gf, Hf, reg=1e-6, runtime_sized=False):
+def riccati_backward(A, B, d, grads, hess, gf, Hf, reg=1e-6):
     """Batched Riccati backward pass.
 
     d: (Bt, N, nx), grads: (Bt, N, nz), hess: (Bt, N, nz, nz), gf: (Bt, nx),
@@ -238,10 +242,8 @@ def riccati_backward(A, B, d, grads, hess, gf, Hf, reg=1e-6, runtime_sized=False
 
     CUDA tensors go to the kernel (float32 or float64, all of one dtype,
     contiguous, any nu that fits a block's shared memory) or raise; CPU
-    tensors run the plain version.  ``runtime_sized`` keeps a float32 CUDA
-    call off the instances compiled for the shipped widths (for comparing
-    the two; the results agree to float32 rounding).
+    tensors run the plain version.
     """
     if d.is_cuda:
-        return _riccati_backward_cuda(A, B, d, grads, hess, gf, Hf, reg, runtime_sized)
+        return _riccati_backward_cuda(A, B, d, grads, hess, gf, Hf, reg)
     return riccati_backward_plain(A, B, d, grads, hess, gf, Hf, reg)

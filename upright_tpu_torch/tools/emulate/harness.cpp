@@ -1,14 +1,18 @@
 // Runs one instantiation of riccati_backward_kernel on the CPU, block by block.
 //
-//   harness DIR INSTANCE Bt N nx nu INVARIANT REG
+//   harness DIR INSTANCE Bt N nx nu INVARIANT REG LATE_COPIES
 //
 // reads A, B, d, g, H, gf, Hf from DIR (raw float64, C order; A and B without
 // the batch and stage axes when INVARIANT is 1), converts them to the
 // instance's type, and writes K_out and kff_out (float64).  INSTANCE is f0 or d0
-// (runtime-sized, float32 or float64) or f2713, d2713, f1810, d1810.
-// kernel_part.cu is csrc/riccati.cu up to its "host side" marker.
+// (runtime-sized, float32 or float64) or f2713, d2713, f1810, d1810.  With
+// LATE_COPIES 1 an asynchronous copy lands when its thread waits for it, with 0
+// when it is started.  riccati.cu is csrc/riccati.cu, copied beside this file
+// so that its includes find the stand-ins here.
 
 #include <cuda_runtime.h>
+
+#include "async_copy.cuh"
 
 #include <cstdio>
 #include <cstdlib>
@@ -18,12 +22,15 @@
 thread_local Dim3 threadIdx, blockIdx;
 pthread_barrier_t g_block_barrier, g_warp_barrier[kMaxEmulatedWarps];
 double g_exchange[kMaxEmulatedWarps][32];
+bool g_copies_land_late = false;
+thread_local std::vector<PendingCopy> g_pending_copies;
 namespace {
 constexpr size_t kSmemBytes = 1 << 18;
 alignas(16) unsigned char smem_raw[kSmemBytes];
 }  // namespace
 
-#include "kernel_part.cu"
+#define RICCATI_DEVICE_CODE_ONLY
+#include "riccati.cu"
 
 template <typename T>
 std::vector<T> read_array(const std::string& path, size_t n) {
@@ -114,14 +121,15 @@ int run(const std::string& dir, int Bt, int N, int nx, int nu, bool invariant, d
 }
 
 int main(int argc, char** argv) {
-  if (argc != 9) {
-    fprintf(stderr, "usage: harness DIR INSTANCE Bt N nx nu INVARIANT REG\n");
+  if (argc != 10) {
+    fprintf(stderr, "usage: harness DIR INSTANCE Bt N nx nu INVARIANT REG LATE_COPIES\n");
     return 2;
   }
   const std::string dir = argv[1], inst = argv[2];
   const int Bt = atoi(argv[3]), N = atoi(argv[4]), nx = atoi(argv[5]), nu = atoi(argv[6]);
   const bool inv = atoi(argv[7]) != 0;
   const double reg = atof(argv[8]);
+  g_copies_land_late = atoi(argv[9]) != 0;
   if (inst == "f0") return run<float, 0, 0>(dir, Bt, N, nx, nu, inv, reg);
   if (inst == "d0") return run<double, 0, 0>(dir, Bt, N, nx, nu, inv, reg);
   if (inst == "f2713") return run<float, 27, 13>(dir, Bt, N, nx, nu, inv, reg);

@@ -6,10 +6,12 @@
 thread, a pthread barrier per block and per warp), and ``harness.cpp`` runs
 one instantiation of the kernel block by block on arrays read from files.  So
 the indexing, the barriers' placement and the arithmetic of every
-instantiation can be held against ``riccati_backward_plain`` in float64
-without a card; the specialised instances, float32 on the card, can here be
-run in float64 too.  What it cannot show: that ``nvcc`` accepts the source,
-races that real warps would expose (copies land at once here), and any time.
+instantiation can be held against the reference and the plain version in
+float64 without a card; the specialised instances, float32 on the card, can
+here be run in float64 too.  An asynchronous copy lands either when it is
+started or, with ``late_copies``, when its thread waits for it: the two ends
+of what the card may do.  What it cannot show: that ``nvcc`` accepts the
+source, races between real warps inside that span, and any time.
 
     binary = build(workdir)                       # needs g++
     K, kff = run(binary, "d0", arrays, reg=1e-6)  # arrays: numpy, float64
@@ -25,21 +27,17 @@ import numpy as np
 
 _TOOLS = Path(__file__).resolve().parent
 _KERNEL = _TOOLS.parent / "csrc" / "riccati.cu"
-HOST_MARKER = "// ---- host side"
 INSTANCES = ("f0", "d0", "f2713", "d2713", "f1810", "d1810")
 
 
 def build(workdir, compiler="g++"):
-    """Compile the harness around the device part of csrc/riccati.cu into
+    """Compile the harness around the device code of csrc/riccati.cu (the
+    source defines its host side away under RICCATI_DEVICE_CODE_ONLY) into
     ``workdir``; returns the binary's path."""
     workdir = Path(workdir)
     workdir.mkdir(parents=True, exist_ok=True)
-    for f in (_TOOLS / "emulate").iterdir():
+    for f in [*(_TOOLS / "emulate").iterdir(), _KERNEL]:
         shutil.copy(f, workdir / f.name)
-    source = _KERNEL.read_text()
-    if HOST_MARKER not in source:
-        raise RuntimeError(f"{_KERNEL} has no '{HOST_MARKER}' line to cut at")
-    (workdir / "kernel_part.cu").write_text(source[: source.index(HOST_MARKER)])
     binary = workdir / "harness"
     cmd = [compiler, "-std=c++17", "-O1", "-Wno-unknown-pragmas", f"-I{workdir}",
            "-o", str(binary), str(workdir / "harness.cpp"), "-lpthread"]
@@ -49,7 +47,7 @@ def build(workdir, compiler="g++"):
     return binary
 
 
-def run(binary, instance, arrays, reg, timeout=600):
+def run(binary, instance, arrays, reg, late_copies=False, timeout=600):
     """Run ``instance`` on (A, B, d, grads, hess, gf, Hf); A and B are 2-D for
     stage-invariant dynamics.  Returns (K, kff) as float64 numpy arrays."""
     A, B, d = arrays[0], arrays[1], arrays[2]
@@ -60,7 +58,7 @@ def run(binary, instance, arrays, reg, timeout=600):
     for name, a in zip(("A", "B", "d", "g", "H", "gf", "Hf"), arrays):
         np.ascontiguousarray(a, dtype=np.float64).tofile(data / name)
     cmd = [str(binary), str(data), instance, str(Bt), str(N), str(nx), str(nu),
-           str(int(A.ndim == 2)), repr(float(reg))]
+           str(int(A.ndim == 2)), repr(float(reg)), str(int(late_copies))]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout)
     if proc.returncode != 0:
         raise RuntimeError(f"emulated kernel {instance} exited {proc.returncode}: {proc.stderr}")

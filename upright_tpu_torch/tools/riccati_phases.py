@@ -4,14 +4,13 @@
     python3 upright_tpu_torch/tools/riccati_phases.py [--work DIR]
 
 Copies the package into ``--work`` (default ``_parent/phases`` under the
-checkout, a git-ignored place), puts ``clock64()`` reads between the phases of
-one stage of ``csrc/riccati.cu`` (thread 0 of a one-block launch, stage 3),
-builds that copy and launches it once per instance at batch 1.  Prints one JSON
-line: SM cycles per phase, as thread 0 sees them, each phase ending at the
-barrier that closes it.  At batch 1 the kernel's time is N times such a stage.
+checkout, a git-ignored place), builds the copy's ``csrc/riccati.cu`` with
+``-DRICCATI_PHASE_CLOCK``, which turns the source's phase marks into
+``clock64()`` reads (thread 0 of a one-block launch, stage 3), and launches it
+once per instance at batch 1.  Prints one JSON line: SM cycles per phase, as
+thread 0 sees them, each phase ending at the barrier that closes it.  At batch
+1 the kernel's time is N times such a stage.
 
-The marks are put in by text substitution at the source's phase comments; the
-script fails if one of them is gone, and then wants updating with the kernel.
 The clock reads cost a few tens of cycles each and keep the compiler from
 moving memory operations across them: read the split, not the last percent.
 """
@@ -28,64 +27,30 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[2]
 
-# a mark goes in front of each of these lines; the phase that ends there is named
-PHASE_STARTS = [
-    ("    cp_async_wait_all();\n    __syncthreads();  // stage k has landed", None),
-    ("    // ---- [PZ | Pd_p] =", "wait_and_fetch"),
-    ("    // ---- [Q | q] =", "product_PZ"),
-    ("    // ---- [K | kff] =", "product_Q"),
-    ("    // ---- [P | p] =", "elimination"),
-    ("    // ---- P = sym(P)", "product_P"),
-]
-STAGE_END = "    for (int i = tid; i < nx; i += kThreads) sp[i] = sPZ[i * ldz + nx];\n"
-
-# (label, dtype, nx, nu, wrapper options)
+# (label, dtype, nx, nu, runtime-sized instance)
 LAUNCHES = [
-    ("float32 nx=27 nu=13", "float32", 27, 13, {}),
-    ("float32 nx=18 nu=10", "float32", 18, 10, {}),
-    ("float32 runtime-sized 27/13", "float32", 27, 13, {"runtime_sized": True}),
-    ("float64 runtime-sized 27/13", "float64", 27, 13, {}),
-    ("float32 runtime-sized 27/45", "float32", 27, 45, {}),
+    ("float32 nx=27 nu=13", "float32", 27, 13, False),
+    ("float32 nx=18 nu=10", "float32", 18, 10, False),
+    ("float32 runtime-sized 27/13", "float32", 27, 13, True),
+    ("float32 runtime-sized 18/10", "float32", 18, 10, True),
+    ("float64 runtime-sized 27/13", "float64", 27, 13, False),
+    ("float32 runtime-sized 27/45", "float32", 27, 45, False),
 ]
 
 LAUNCHER = """
 import sys, json, torch
 sys.path.insert(0, {work!r})
-sys.path.insert(0, {tools!r})
-from riccati_times import stage_data
+from upright_tpu_torch import _build
 from upright_tpu_torch.solver import riccati
-for label, dtype, nx, nu, opts in json.loads({launches!r}):
+from upright_tpu_torch.tools.stage_data import stage_data
+_build.load_library("riccati", extra_flags=("-DRICCATI_PHASE_CLOCK",))
+for label, dtype, nx, nu, runtime_sized in json.loads({launches!r}):
     inp = tuple(torch.as_tensor(a, dtype=getattr(torch, dtype), device="cuda")
                 for a in stage_data(1, 20, nx, nu, 1, True))
-    riccati.riccati_backward(*inp, reg=1e-6, **opts)
+    riccati._riccati_backward_cuda(*inp, 1e-6, runtime_sized=runtime_sized)
     torch.cuda.synchronize()
     print("LAUNCHED " + label, flush=True)
 """
-
-
-def instrument(source):
-    names = []
-    for i, (anchor, ends) in enumerate(PHASE_STARTS):
-        if source.count(anchor) != 1:
-            raise RuntimeError(f"phase anchor not found exactly once: {anchor!r}")
-        source = source.replace(anchor, f"    if (phase_clock) tm[{i}] = clock64();\n" + anchor)
-        if ends:
-            names.append(ends)
-    names.append("symmetrise")
-    if source.count(STAGE_END) != 1:
-        raise RuntimeError("end-of-stage anchor not found exactly once")
-    n = len(PHASE_STARTS)
-    fmt = " ".join(f"{name} %lld" for name in names)
-    diffs = ", ".join(f"tm[{i + 1}] - tm[{i}]" for i in range(n))
-    source = source.replace(STAGE_END, STAGE_END + (
-        f"    if (phase_clock) {{\n      tm[{n}] = clock64();\n"
-        f'      printf("PHASES {fmt} stage %lld\\n", {diffs}, tm[{n}] - tm[0]);\n    }}\n'))
-    first = PHASE_STARTS[0][0]
-    source = source.replace(
-        f"    if (phase_clock) tm[0] = clock64();\n{first}",
-        "    const bool phase_clock = gridDim.x == 1 && k == 3 && tid == 0;\n"
-        f"    long long tm[{n + 1}];\n    if (phase_clock) tm[0] = clock64();\n{first}")
-    return "#include <stdio.h>\n" + source
 
 
 def main():
@@ -102,11 +67,7 @@ def main():
     shutil.rmtree(work, ignore_errors=True)
     shutil.copytree(REPO / "upright_tpu_torch", work / "upright_tpu_torch",
                     ignore=shutil.ignore_patterns("build", "__pycache__"))
-    cu = work / "upright_tpu_torch" / "csrc" / "riccati.cu"
-    cu.write_text(instrument(cu.read_text()))
-
-    code = LAUNCHER.format(work=str(work), tools=str(REPO / "upright_tpu_torch" / "tools"),
-                         launches=json.dumps(LAUNCHES))
+    code = LAUNCHER.format(work=str(work), launches=json.dumps(LAUNCHES))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           timeout=600)
     if proc.returncode != 0:

@@ -2,7 +2,7 @@
 """Time the Riccati kernel of one checkout on the card, shape by shape.
 
     python3 upright_tpu_torch/tools/riccati_times.py [--root DIR] [--reps 50]
-                                                     [--ptxas] [--out FILE]
+                                             [--ptxas] [--out FILE] [--brief]
 
 Builds ``csrc/riccati.cu`` of the checkout at ``--root`` (default: the one
 this file is in), checks each case against the float64 plain version of the
@@ -11,68 +11,55 @@ case: ``ms``, the device time of one launch (a CUDA graph of 20 launches back
 to back, replayed, over 20), and ``single_call_ms``, one eager call of the
 wrapper between two events on an idle card, which adds the host's time from
 the first event to the launch (allocation of K and kff, argument checks).
-To compare two commits, unpack the other one into a git-ignored directory and
-run this file once per checkout within one job on one card, in turns (other,
-this, this, other): times from different cards or jobs do not compare.
+``--brief`` prints one short line instead (case, ms / single-call ms), for a
+log that keeps only the end of a job's output.  To compare two commits, unpack
+the other one into a git-ignored directory and run this file once per checkout
+within one job on one card, in turns (other, this, this, other): times from
+different cards or jobs do not compare.
 
-Cases a checkout's wrapper does not take (a dtype, a width, an option) are
-reported as null with the reason, so the same file runs on an older checkout.
+Another checkout may not take every case (a dtype, a width, the runtime-sized
+option): there such a case is reported as null with the reason.  On this
+checkout every case must run.
 """
 
 from __future__ import annotations
 
 import argparse
-import inspect
 import json
+import runpy
 import statistics
 import subprocess
 import sys
 from pathlib import Path
 
-import numpy as np
+OWN_ROOT = Path(__file__).resolve().parents[2]
 
-
-def stage_data(Bt, N, nx, nu, seed, invariant):
-    """Stage data at MPC conditioning (A = I + 0.1 G, B = 0.1 G,
-    H = M M^T + 3 I), float64 numpy from a seed."""
-    rng = np.random.default_rng(seed)
-    nz = nx + nu
-    lead = () if invariant else (Bt, N)
-    A = rng.standard_normal(lead + (nx, nx)) * 0.1 + np.eye(nx)
-    B = rng.standard_normal(lead + (nx, nu)) * 0.1
-    d = rng.standard_normal((Bt, N, nx)) * 0.01
-    g = rng.standard_normal((Bt, N, nz))
-    Hh = rng.standard_normal((Bt, N, nz, nz)) * 0.1
-    H = Hh @ np.swapaxes(Hh, -1, -2) + 3 * np.eye(nz)
-    gf = rng.standard_normal((Bt, nx))
-    Hf_ = rng.standard_normal((Bt, nx, nx)) * 0.1
-    Hf = Hf_ @ np.swapaxes(Hf_, -1, -2) + np.eye(nx)
-    return A, B, d, g, H, gf, Hf
-
-
-# (label, Bt, N, nx, nu, stage-invariant A and B, dtype, wrapper options)
+# (label, Bt, N, nx, nu, stage-invariant A and B, dtype, runtime-sized instance);
+# a_ / b_: per-stage / stage-invariant dynamics, _rt: the runtime-sized instance
 CASES = [
-    ("form_b_512x20x27x13_f32", 512, 20, 27, 13, True, "float32", {}),
-    ("form_a_512x20x27x13_f32", 512, 20, 27, 13, False, "float32", {}),
-    ("form_b_1x20x27x13_f32", 1, 20, 27, 13, True, "float32", {}),
-    ("form_b_512x20x27x13_f32_runtime_sized", 512, 20, 27, 13, True, "float32",
-     {"runtime_sized": True}),
-    ("form_b_1x20x27x13_f32_runtime_sized", 1, 20, 27, 13, True, "float32",
-     {"runtime_sized": True}),
-    ("form_b_512x20x18x10_f32", 512, 20, 18, 10, True, "float32", {}),
-    ("form_b_512x20x27x13_f64", 512, 20, 27, 13, True, "float64", {}),
-    ("form_b_64x20x27x45_f32", 64, 20, 27, 45, True, "float32", {}),
-    ("form_b_64x200x27x13_f32", 64, 200, 27, 13, True, "float32", {}),
+    ("b_512x20x27x13", 512, 20, 27, 13, True, "float32", False),
+    ("a_512x20x27x13", 512, 20, 27, 13, False, "float32", False),
+    ("b_1x20x27x13", 1, 20, 27, 13, True, "float32", False),
+    ("b_512x20x27x13_rt", 512, 20, 27, 13, True, "float32", True),
+    ("b_1x20x27x13_rt", 1, 20, 27, 13, True, "float32", True),
+    ("b_512x20x18x10", 512, 20, 18, 10, True, "float32", False),
+    ("b_1x20x18x10", 1, 20, 18, 10, True, "float32", False),
+    ("b_512x20x18x10_rt", 512, 20, 18, 10, True, "float32", True),
+    ("b_1x20x18x10_rt", 1, 20, 18, 10, True, "float32", True),
+    ("b_512x20x27x13_f64", 512, 20, 27, 13, True, "float64", False),
+    ("b_64x20x27x45", 64, 20, 27, 45, True, "float32", False),
+    ("b_64x200x27x13", 64, 200, 27, 13, True, "float32", False),
 ]
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]),
+    ap.add_argument("--root", default=str(OWN_ROOT),
                     help="checkout whose upright_tpu_torch is built and timed")
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--ptxas", action="store_true", help="print what ptxas -v says of the build")
     ap.add_argument("--out", default=None, help="also write the JSON line here")
+    ap.add_argument("--brief", action="store_true", help="print one short line, not the JSON")
     args = ap.parse_args()
 
     import torch
@@ -80,7 +67,11 @@ def main():
     if not torch.cuda.is_available():
         print("riccati_times: no CUDA device is available", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(Path(args.root).resolve()))
+    root = Path(args.root).resolve()
+    # the generator beside this file, by path: the package imported below is
+    # --root's, which may be an older checkout without it
+    stage_data = runpy.run_path(str(Path(__file__).with_name("stage_data.py")))["stage_data"]
+    sys.path.insert(0, str(root))
     from upright_tpu_torch import _build
     from upright_tpu_torch.solver import riccati
 
@@ -90,7 +81,6 @@ def main():
         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
     _build.load_library("riccati", extra_flags=("-Xptxas", "-v") if args.ptxas else (),
                         verbose=args.ptxas)
-    options = set(inspect.signature(riccati.riccati_backward).parameters)
 
     def median_ms(fn, reps):
         torch.cuda.synchronize()
@@ -117,18 +107,20 @@ def main():
         graph.replay()
         return median_ms(graph.replay, reps) / inner
 
-    out = {"root": str(Path(args.root).resolve().name), "card": card, "reps": args.reps,
+    out = {"root": root.name, "card": card, "reps": args.reps,
            "ms": {}, "single_call_ms": {}, "rel_err_vs_plain_f64": {}, "skipped": {}}
-    for label, Bt, N, nx, nu, invariant, dtype, opts in CASES:
-        if not set(opts) <= options:
-            out["ms"][label] = None
-            out["skipped"][label] = f"the wrapper has no option {sorted(opts)}"
-            continue
+    for label, Bt, N, nx, nu, invariant, dtype, runtime_sized in CASES:
         arrays = stage_data(Bt, N, nx, nu, seed=1, invariant=invariant)
         inp = tuple(torch.as_tensor(a, dtype=getattr(torch, dtype), device=dev) for a in arrays)
+        if runtime_sized:
+            call = lambda: riccati._riccati_backward_cuda(*inp, 1e-6, runtime_sized=True)  # noqa: E731
+        else:
+            call = lambda: riccati.riccati_backward(*inp, reg=1e-6)  # noqa: E731
         try:
-            K, kff = riccati.riccati_backward(*inp, reg=1e-6, **opts)
+            K, kff = call()
         except (NotImplementedError, TypeError, ValueError) as e:
+            if root == OWN_ROOT:
+                raise
             out["ms"][label] = None
             out["skipped"][label] = f"{type(e).__name__}: {e}"
             continue
@@ -141,11 +133,18 @@ def main():
         if not err <= tol:
             raise AssertionError(f"{label}: kernel differs from the plain version by {err:.3e}")
         out["rel_err_vs_plain_f64"][label] = err
-        call = lambda: riccati.riccati_backward(*inp, reg=1e-6, **opts)  # noqa: E731
         out["ms"][label] = launch_ms(call, args.reps)
         out["single_call_ms"][label] = median_ms(call, args.reps)
     line = json.dumps(out)
-    print(line, flush=True)
+    if args.brief:
+        cells = " ".join(
+            f"{label} {out['ms'][label]:.4f}/{out['single_call_ms'][label]:.4f}"
+            if out["ms"][label] is not None else f"{label} -"
+            for label, *_ in CASES)
+        print(f"TIMES {root.name} {card} launch/single ms, median of {args.reps}: {cells}",
+              flush=True)
+    else:
+        print(line, flush=True)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(line + "\n")

@@ -1,0 +1,64 @@
+"""Inputs for the Riccati backward pass, made with numpy from a seed.
+
+The one place the kernel's tests, ``chip_smoke.py`` and the timing tools take
+their stage data from, so that a number measured by one can be reproduced by
+another.  Everything is float64; callers cast.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def stage_data(Bt, N, nx, nu, seed=0, invariant=False):
+    """Stage data at the conditioning of an MPC solve (A = I + 0.1 G,
+    B = 0.1 G, H = M M^T + 3 I).  Returns (A, B, d, grads, hess, gf, Hf);
+    ``invariant`` gives one unbatched (A, B) pair for the whole batch."""
+    rng = np.random.default_rng(seed)
+    nz = nx + nu
+    lead = () if invariant else (Bt, N)
+    A = rng.standard_normal(lead + (nx, nx)) * 0.1 + np.eye(nx)
+    B = rng.standard_normal(lead + (nx, nu)) * 0.1
+    d = rng.standard_normal((Bt, N, nx)) * 0.01
+    g = rng.standard_normal((Bt, N, nz))
+    Hh = rng.standard_normal((Bt, N, nz, nz)) * 0.1
+    H = Hh @ np.swapaxes(Hh, -1, -2) + 3 * np.eye(nz)
+    gf = rng.standard_normal((Bt, nx))
+    Hf_ = rng.standard_normal((Bt, nx, nx)) * 0.1
+    Hf = Hf_ @ np.swapaxes(Hf_, -1, -2) + np.eye(nx)
+    return A, B, d, g, H, gf, Hf
+
+
+def random_batch(Bt, N, nx, nu, seed=0):
+    """Random SPD stage data with unit-scale B (A = I + 0.2 G), the
+    conditioning the reference's kernel tests use at small shapes."""
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((Bt, N, nx, nx)) * 0.2 + np.eye(nx)
+    B = rng.standard_normal((Bt, N, nx, nu))
+    d = rng.standard_normal((Bt, N, nx)) * 0.05
+    grads = rng.standard_normal((Bt, N, nx + nu))
+    M = rng.standard_normal((Bt, N, nx + nu, nx + nu))
+    hess = 0.1 * np.einsum("bkij,bklj->bkil", M, M) + np.eye(nx + nu)
+    gf = rng.standard_normal((Bt, nx))
+    Mf = rng.standard_normal((Bt, nx, nx))
+    Hf = 0.1 * np.einsum("bij,blj->bil", Mf, Mf) + np.eye(nx)
+    return A, B, d, grads, hess, gf, Hf
+
+
+def fallback_batch(Bt=6, N=3, nx=6, nu=26, seed=7):
+    """A wide-input batch (per-stage dynamics, to be solved with reg = 0) in
+    which, at stage 1, B = 0 and luu = diag(1, ..., 1, last): last = -1e-5 in
+    instances 1 and 3 fails the first jitter (1e-7 relative) and passes the
+    second (1e-3); last = -1 in instance 4 fails both.  Instances 0, 2 and 5
+    are ordinary."""
+    A, B, d, g, H, gf, Hf = stage_data(Bt, N, nx, nu, seed=seed)
+    nz = nx + nu
+    for b, last in ((1, -1e-5), (3, -1e-5), (4, -1.0)):
+        Hs = np.zeros((nz, nz))
+        Hs[:nx, :nx] = 2 * np.eye(nx)
+        Hs[nx:, nx:] = np.diag([1.0] * (nu - 1) + [last])
+        Hs[nx:, :nx] = 0.1 * np.arange(nu * nx).reshape(nu, nx) / (nu * nx)
+        Hs[:nx, nx:] = Hs[nx:, :nx].T
+        B[b, 1] = 0.0
+        H[b, 1] = Hs
+    return A, B, d, g, H, gf, Hf
