@@ -7,9 +7,10 @@ Drives the port's main path through the entry points a user would call and
 holds every hand-written kernel against its plain PyTorch version:
 
   1. the card (name, power limit, torch / CUDA versions);
-  2. builds the Riccati kernel from upright_tpu_torch/csrc/ with nvcc and
+  2. builds both kernels from upright_tpu_torch/csrc/ (the Riccati kernel K1
+     and the plant's contact kernel P1, one nvcc each, in parallel) and
      prints registers, local memory and shared memory of each instantiation;
-  3. the kernel against its plain version (float64): the main-path shapes in
+  3. K1 against its plain version (float64): the main-path shapes in
      float32 and float64, the wide-input route (nu = 45) in both, and a batch
      built to take the jitter fallback and to fail it (same NaN pattern);
   4. the batched main path: demos/thing_demo.yaml, N = 20, batch 512, one
@@ -17,9 +18,23 @@ holds every hand-written kernel against its plain PyTorch version:
   5. the steady replan at batch 1: shift -> heal -> solve -> policy;
   6. kernel times (specialised and runtime-sized instances, both forms, batch
      1, float64, nu = 45, N = 200), each as one eager call of the wrapper and
-     as the kernel's device time alone, beside its bound; then one JSON line
-     describing each kernel (time, bound, launches), the card's name and
-     power limit, and the final JSON line.
+     as the kernel's device time alone, beside its bound;
+  7. the plant's contact kernel P1 (csrc/plant.cu) against its plain
+     version over one control tick (10 outer steps x 40 substeps):
+     thing_demo at batch 1 and 64 with the mass, mu and CoM spread per
+     instance, a stacked arrangement (box_arch), the regularized friction
+     model and a batch that trips the divergence latch: float64 against the
+     plain version, float32 against the plain version run in float32 on the
+     same inputs (the witness), and a control that the float32 limits reject;
+  8. the closed loop: thing_demo at full width on the device loop
+     (runtime/device_loop.py), a 12-iteration cold solve, then 150 ticks at
+     100 Hz (1.5 s) through both kernels: costs finite, the bottle within
+     0.03 m of its place; then 10 ticks of the host loop (ControllerManager +
+     UprightSimulation) against the device loop from the same start;
+  9. P1's times (batch 1 and 512) beside its bound and its plain version's,
+     and the closed loop's host time per tick, replan and plant apart; then
+     one JSON line describing each kernel (time, bound, launches), the card's
+     name and power limit, and the final JSON line.
 
 With ``--breakdown`` it also times the phases of one solve (linearization,
 Riccati kernel, line search) between synchronisations and traces three solves
@@ -111,9 +126,21 @@ def main():
         batch_warm_starts,
         broadcast_params,
     )
+    from upright_tpu_torch.runtime.device_loop import build_device_loop
+    from upright_tpu_torch.sim import contact
+    from upright_tpu_torch.sim.simulation import UprightSimulation
     from upright_tpu_torch.solver import al, riccati
     from upright_tpu_torch.solver.al import ALConfig, solve
+    from upright_tpu_torch.solver.mpc import ControllerManager, MPCSettings
     from upright_tpu_torch.solver.ocp import SolverState
+    from upright_tpu_torch.tools.plant_data import (
+        F32_TOL,
+        float32_witness,
+        max_errors,
+        objects_to,
+        plant_for,
+        tick_inputs,
+    )
     from upright_tpu_torch.tools.stage_data import fallback_batch, random_batch, stage_data
 
     dev = torch.device("cuda")
@@ -163,14 +190,21 @@ def main():
           and torch.get_float32_matmul_precision() == "highest",
           "float32 products are full float32 (TF32 off)")
 
-    # -- 2. build the kernel ------------------------------------------------
+    # -- 2. build the kernels ------------------------------------------------
     log("== 2. build")
     t0 = time.perf_counter()
-    _build.load_library("riccati", extra_flags=("-Xptxas", "-v"), verbose=True)
+    # one nvcc per source, started together
+    _build.build(["riccati", "plant"], extra_flags=("-Xptxas", "-v"), verbose=True)
     riccati._library()
+    contact._library()
     build_s = time.perf_counter() - t0
-    log(f"built csrc/riccati.cu in {build_s:.1f} s (set-up)")
+    log(f"built csrc/riccati.cu and csrc/plant.cu in {build_s:.1f} s (set-up)")
     results["build_s"] = build_s
+    for (name, a), dt_ in zip(contact.instance_attrs().items(), (torch.float32, torch.float64)):
+        log(f"  plant instance {name}: {a['registers']} registers, {a['local_bytes']} bytes of "
+            f"local memory per thread, shared memory {a['static_smem_bytes']} static + "
+            f"{contact.smem_bytes(1, 16, dt_)} dynamic at thing_demo's 1 object and 16 slots")
+    results["plant_instances"] = contact.instance_attrs()
     attrs = riccati.instance_attrs()
     smem_at = {
         "float32 nx=27 nu=13": [(27, 13, torch.float32, False)],
@@ -459,6 +493,14 @@ def main():
         log(f"  {label}: {t:.4f} ms ({t_launch:.4f} per launch); bound {max(t_bytes, t_ops):.4f} ms "
             f"({nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms, {flops / 1e9:.3f} GFLOP -> {t_ops:.4f} ms)")
     results["kernel_times"] = kernel_times
+    # the bound at ur10_demo's widths, which tools/riccati_times.py times
+    for Bt in (BATCH, 1):
+        nbytes, flops = riccati_work(Bt, HORIZON, 18, 10, True)
+        t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_FP32_FLOPS * 1e3
+        log(f"  bound at {Bt}x{HORIZON}x18x10 (form b, float32): {max(t_bytes, t_ops):.6f} ms "
+            f"({'bytes' if t_bytes >= t_ops else 'operations'}; {nbytes / 1e6:.2f} MB -> "
+            f"{t_bytes:.6f} ms, {flops / 1e9:.4f} GFLOP -> {t_ops:.6f} ms)")
+        results[f"riccati_bound_{Bt}x{HORIZON}x18x10"] = max(t_bytes, t_ops)
     plain_ms = cuda_median_ms(
         lambda: riccati.riccati_backward_plain(*inp_b, reg=reg), reps=3, warmup=1)
     inp_c = kernel_inputs["form_b_64x20x27x45"]
@@ -486,6 +528,218 @@ def main():
         return K_k, kff_k
 
     library_ms = cuda_median_ms(lambda: riccati_library(*inp_b), reps=5, warmup=1)
+
+    # -- 7. the plant's contact kernel vs its plain version -----------------------
+    log("== 7. plant kernel P1 vs its plain version on the card, one control tick")
+    # Inputs: tools/plant_data.py, made on the CPU in float64 from numpy seeds:
+    # the objects settled on a tray that starts to move, nudged, mass and mu
+    # within +-20% and the CoM within +-5 mm per instance and object.
+    # Tolerances.  float64 kernel against the float64 plain version: 1e-10
+    # absolute on r, q, v, w and the anchors, and identical contact and latch
+    # flags: both sides are float64 and differ in summation order, fused
+    # multiply-adds and the 3 x 3 solve (Cramer's rule against LU), 1e-14 on
+    # the emulated kernel.  float32 kernel against the witness, the plain
+    # version in float32 on the same float32 inputs: tools/plant_data.py
+    # F32_TOL, which the control (the witness with the inertia 10% off) must
+    # exceed in every field.  The float32 results' distance from float64 is
+    # printed beside, for the kernel and for the witness.
+    PLANT_TOL_F64 = 1e-10
+    PLANT_TOL_F32 = F32_TOL
+    plant_cases = [
+        ("thing_b1", ("thing_demo", None, None), 1, ()),
+        ("thing_b64", ("thing_demo", None, None), 64, ()),
+        ("stacked_b8", ("ur10_demo", "box_arch", None), 8, ()),
+        ("regularized_b8", ("thing_demo", None, "regularized"), 8, ()),
+        ("latch_b4", ("thing_demo", None, None), 4, (0, 2)),
+    ]
+    def fmt(err):
+        return ", ".join(f"{k} {v:.2e}" for k, v in err.items())
+
+    plant_err32, plant_err64 = 0.0, 0.0
+    plant_inputs, plant_readings = {}, []
+    for label, (demo, arrangement, friction), B, diverge in plant_cases:
+        sim_cpu = plant_for(demo, arrangement, friction)
+        frames, objects, params = tick_inputs(sim_cpu, B, seed=B, diverge=diverge)
+        tables64 = sim_cpu.tables.to(device=dev)
+        tables32 = tables64.to(dtype=torch.float32)
+        consts = sim_cpu.contact
+
+        def on_card(dtype):
+            return (frames.to(dev, dtype), objects_to(objects, dev, dtype),
+                    {k: v.to(dev, dtype) for k, v in params.items()})
+
+        ref = contact.advance_objects_plain(tables64, consts, *on_card(torch.float64))
+        witness, control = float32_witness(tables64, consts, *on_card(torch.float64))
+        out64 = contact.advance_objects(tables64, consts, *on_card(torch.float64))
+        out32 = contact.advance_objects(tables32, consts, *on_card(torch.float32))
+        torch.cuda.synchronize()
+        err64, same64 = max_errors(out64, ref)
+        err32, same32 = max_errors(out32, witness)
+        err_ctl, _ = max_errors(control, witness)
+        off64 = {"kernel": max_errors(out32, ref)[0], "witness": max_errors(witness, ref)[0]}
+        log(f"  {label} ({demo}{'/' + arrangement if arrangement else ''}, "
+            f"{sim_cpu.friction_model}, {sim_cpu.tables.n_slots} slots x batch {B}):\n"
+            f"    float64 kernel vs plain: {fmt(err64)}\n"
+            f"    float32 kernel vs witness: {fmt(err32)}; flags "
+            f"{'identical' if same32 else 'differ'}\n"
+            f"    control (inertia x1.1) vs witness: {fmt(err_ctl)}\n"
+            f"    float32 vs float64 plain: kernel {fmt(off64['kernel'])}; "
+            f"witness {fmt(off64['witness'])}")
+        plant_readings.append((label, ref, out32, diverge, err64, same64, err32, err_ctl))
+        plant_err64 = max(plant_err64, max(err64.values()))
+        plant_err32 = max(plant_err32, max(err32.values()))
+        results[f"plant_err_{label}"] = {"float64": err64, "float32_vs_witness": err32,
+                                         "control_vs_witness": err_ctl,
+                                         "float32_vs_float64": off64}
+        plant_inputs[label] = (frames, objects, params)
+    # every reading is printed before the first check
+    for label, ref, out32, diverge, err64, same64, err32, err_ctl in plant_readings:
+        check(same64 and max(err64.values()) <= PLANT_TOL_F64,
+              f"{label}: float64 within {PLANT_TOL_F64}, contact and latch flags identical")
+        check(all(err32[k] <= tol for k, tol in PLANT_TOL_F32.items() if k in err32),
+              f"{label}: float32 kernel within {PLANT_TOL_F32} of the witness")
+        check(all(err_ctl[k] > tol for k, tol in PLANT_TOL_F32.items() if k in err_ctl),
+              f"{label}: the control exceeds every float32 limit")
+        check(bool(torch.isfinite(out32.r).all() and torch.isfinite(out32.v).all()),
+              f"{label}: float32 state finite")
+        if ref.anchor_valid is not None:
+            check(bool(ref.anchor_valid.any()), f"{label}: objects in contact after the tick")
+        latched = torch.nonzero(ref.diverged.any(-1)).flatten().tolist()
+        check(latched == list(diverge) and bool((out32.diverged == ref.diverged).all()),
+              f"{label}: latched instances {latched} (float32 and float64 alike)")
+
+    # -- 8. the closed loop ----------------------------------------------------------
+    LOOP_TICKS, HOST_TICKS, RATE = 150, 10, 100.0
+    log(f"== 8. closed loop on the card: thing_demo, {RATE:.0f} Hz, {LOOP_TICKS} ticks")
+    settings = MPCSettings.from_config(config["controller"])
+    loop_cfg = settings.al_config()
+    sim_l = UprightSimulation(config["simulation"])  # card, float32: the defaults
+    check(sim_l.object_substeps == 40 and sim_l.tables.n_slots == 16
+          and sim_l.friction_model == "stiction",
+          "plant: stiction, 40 substeps per 1 ms step, 16 contact slots")
+    init_carry, run = build_device_loop(prob, sim_l, al_cfg=loop_cfg, ctrl_rate=RATE)
+    t0 = time.perf_counter()
+    carry0 = init_carry()  # the 12-iteration cold solve
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+
+    riccati.launch_count = 0
+    contact.launch_count = 0
+    t0 = time.perf_counter()
+    carry, metrics = run(carry0, LOOP_TICKS)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    launches_loop_k1, launches_loop_p1 = riccati.launch_count, contact.launch_count
+    check(launches_loop_k1 == LOOP_TICKS * loop_cfg.iterations,
+          f"the Riccati kernel was launched once per tick ({launches_loop_k1})")
+    check(launches_loop_p1 == LOOP_TICKS,
+          f"the plant kernel was launched once per tick ({launches_loop_p1})")
+    cost, eq_l, r_ew = metrics.cost.cpu(), metrics.eq_viol.cpu(), metrics.r_ew_w.cpu()
+    check(bool(torch.isfinite(cost).all() and torch.isfinite(eq_l).all()
+               and torch.isfinite(r_ew).all()), "costs, eq_viol and EE positions finite")
+    disp = sim_l.object_displacements(carry.sim)[0]
+    target_r = prob.target.poses[0, :3].cpu()
+    ee_err = [float(torch.linalg.vector_norm(r_ew[i] - target_r)) for i in (0, -1)]
+    log(f"  {LOOP_TICKS} ticks in {loop_s:.2f} s ({loop_s * 1e3 / LOOP_TICKS:.2f} ms per tick; "
+        f"cold solve {cold_s:.2f} s); EE error to the first waypoint {ee_err[0]:.4f} -> "
+        f"{ee_err[1]:.4f} m; final eq_viol {float(eq_l[-1]):.2e}; bottle displacement "
+        f"{float(disp.max()):.2e} m")
+    check(bool(np.isfinite(disp).all() and (disp < 0.03).all()),
+          "the bottle stays within 0.03 m of its place on the tray")
+    results.update(loop_ticks=LOOP_TICKS, loop_s=loop_s, cold_solve_s=cold_s,
+                   loop_ee_err=ee_err, loop_eq_viol_final=float(eq_l[-1]),
+                   loop_bottle_displacement=float(disp.max()))
+
+    # the host loop (ControllerManager + UprightSimulation, as mpc_sim runs it)
+    # against the device loop from the same cold solve.  Tolerances: the host
+    # loop carries the acceleration belief and the command in float64 numpy and
+    # hands the solver float32, the device loop stays float32 throughout; on
+    # the CPU in float32 the two differ after 10 ticks by 7e-12 in q, 1e-7 in
+    # the acceleration belief, 3e-6 in X (|X| 1.6) and 0 in the bottle's
+    # position, and the tolerances leave a margin of 30 or more
+    ctrl = ControllerManager(prob, settings)
+    sim_h = UprightSimulation(config["simulation"])
+    state_h = sim_h.initial_state()
+    nq = sim_h.robot.nq
+    a_h = np.zeros(nq)
+    dt_ctrl = 1.0 / RATE
+    ctrl.warmstart(0.0, np.concatenate([state_h.q[0].cpu().numpy(),
+                                        state_h.v[0].cpu().numpy(), a_h]))
+    carry_d, _ = run(init_carry(t0=dt_ctrl, solver_state=ctrl.state), HOST_TICKS)
+    t = dt_ctrl
+    for _ in range(HOST_TICKS):
+        q_m, v_m = sim_h.measure(state_h)
+        v_np = v_m[0].cpu().numpy()
+        x = np.concatenate([q_m[0].cpu().numpy(), v_np, a_h])
+        _xd, u = ctrl.step(t, x)
+        v_cmd = v_np + dt_ctrl * a_h + 0.5 * dt_ctrl**2 * u[:nq]
+        a_h = a_h + dt_ctrl * u[:nq]
+        state_h = sim_h.step(state_h, torch.as_tensor(v_cmd), n_steps=10)
+        t += dt_ctrl
+    torch.cuda.synchronize()
+    HOST_TOL = {"q": 1e-6, "a_state": 1e-4, "X": 1e-4, "bottle r": 1e-6}
+    host_err = {
+        "q": float((carry_d.sim.q - state_h.q).abs().max()),
+        "a_state": float((carry_d.a_state[0].cpu().double() - torch.as_tensor(a_h)).abs().max()),
+        "X": float((carry_d.solver.X - ctrl.state.X).abs().max()),
+        "bottle r": float((carry_d.sim.objects.r - state_h.objects.r).abs().max()),
+    }
+    log("  host loop vs device loop after 10 ticks: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in host_err.items()))
+    check(all(host_err[k] <= tol for k, tol in HOST_TOL.items()),
+          f"host loop and device loop agree within {HOST_TOL}")
+    results["host_vs_device_loop"] = host_err
+
+    # -- 9. times: P1 and the closed loop's tick ---------------------------------
+    log("== 9. plant kernel times (CUDA events, median) and the closed loop's host time per tick")
+    tables32 = sim_l.tables
+
+    def plant_in(label, repeat=1):
+        frames, objects, params = plant_inputs[label]
+        f32 = objects_to(objects, dev, torch.float32)
+        if repeat > 1:
+            f32 = f32.replace(**{k: getattr(f32, k).repeat((repeat,) + (1,) * (getattr(f32, k).ndim - 1))
+                                 for k in ("r", "q", "v", "w", "anchors", "anchor_valid", "diverged")})
+        return (frames.to(dev, torch.float32).repeat(repeat, 1, 1), f32,
+                {k: v.to(dev, torch.float32).repeat((repeat,) + (1,) * (v.ndim - 1))
+                 for k, v in params.items()})
+
+    plant_times = {}
+    for name, inp in (("batch1", plant_in("thing_b1")), ("batch512", plant_in("thing_b64", 8))):
+        B = inp[0].shape[0]
+        call = lambda: contact.advance_objects(tables32, sim_l.contact, *inp)  # noqa: E731
+        nbytes, flops = contact.plant_work(tables32, sim_l.contact, B, inp[0].shape[1], 4)
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        t_ops = flops / H100_FP32_FLOPS * 1e3
+        t, t_launch = cuda_median_ms(call, reps=20), cuda_launch_ms(call, reps=10, inner=5)
+        plant_times[name] = {"ms": t, "ms_per_launch": t_launch, "bound_ms": max(t_bytes, t_ops),
+                             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                             "bytes": nbytes, "flops": flops}
+        log(f"  P1 {name}: {t:.4f} ms ({t_launch:.4f} per launch); bound {max(t_bytes, t_ops):.6f} ms "
+            f"({nbytes / 1e3:.1f} kB -> {t_bytes:.6f} ms, {flops / 1e6:.2f} MFLOP -> {t_ops:.6f} ms)")
+    inp1 = plant_in("thing_b1")
+    plant_plain_ms = cuda_median_ms(
+        lambda: contact.advance_objects_plain(tables32, sim_l.contact, *inp1), reps=1, warmup=0)
+    log(f"  P1 plain version, one tick at batch 1: {plant_plain_ms:.1f} ms")
+
+    # host time per tick of the closed loop (between synchronisations, median
+    # of 20): one tick of the device loop, and the plant's step alone
+    def host_ms(fn, reps=20):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    tick_ms = host_ms(lambda: run(carry, 1))
+    plant_step_ms = host_ms(lambda: sim_l.step(carry.sim, carry.sim.v, n_steps=10))
+    log(f"  closed loop, host ms per tick: {tick_ms:.2f} = replan {tick_ms - plant_step_ms:.2f} "
+        f"+ plant {plant_step_ms:.2f} (of which P1 {plant_times['batch1']['ms']:.3f})")
+    results.update(plant_times=plant_times, plant_plain_ms=plant_plain_ms, loop_tick_ms=tick_ms,
+                   loop_plant_ms=plant_step_ms, loop_replan_ms=tick_ms - plant_step_ms)
 
     # -- optional: where one solve's time goes ---------------------------------
     def phase_breakdown(label, p, x0, st):
@@ -563,7 +817,7 @@ def main():
         return out
 
     if args.breakdown:
-        log("== 7. breakdown of one solve (optional)")
+        log("== 10. breakdown of one solve (optional)")
         results["breakdown_batch512"] = phase_breakdown(
             f"batch {BATCH}", params, x0s, prev_state)
         results["breakdown_batch1"] = phase_breakdown(
@@ -609,8 +863,29 @@ def main():
                     ("long_64x200x27x13", "form_b_64x200x27x13"))},
                 "launches_batched_path": launches_batched,
                 "launches_replan_path": launches_replan,
+                "launches_closed_loop": launches_loop_k1,
                 "launches_per_solve": al_cfg.iterations,
-            }
+            },
+            {
+                "name": "plant_substeps",
+                "route": "cuda",
+                "source": "upright_tpu_torch/csrc/plant.cu",
+                "replaces": "upright_tpu/sim/simulation.py:324-644 (no Pallas kernel)",
+                "launches": launches_loop_p1,
+                "max_abs_err": plant_err32,
+                "ms": round(plant_times["batch1"]["ms"], 6),
+                "plain_ms": plant_plain_ms,
+                "bound_ms": plant_times["batch1"]["bound_ms"],
+                "bound_by": plant_times["batch1"]["bound_by"],
+                "library_ms": None,
+                "shape": "thing_demo, one control tick: batch 1, 10 outer steps x 40 substeps, "
+                         "16 contact slots, float32",
+                "ms_batch512": round(plant_times["batch512"]["ms"], 6),
+                "bound_ms_batch512": plant_times["batch512"]["bound_ms"],
+                "ms_per_launch": {k: round(v["ms_per_launch"], 6) for k, v in plant_times.items()},
+                "max_abs_err_float64": plant_err64,
+                "launches_per_tick": launches_loop_p1 / LOOP_TICKS,
+            },
         ]
     }
     results.update(kernels=kernels["kernels"], card=card_line,
@@ -623,7 +898,7 @@ def main():
             json.dump(results, f, indent=1)
 
     log(f"solves_per_s={solves_per_s:.1f} replan_ms={replan_ms:.3f} "
-        f"total_s={time.perf_counter() - t_start:.1f}")
+        f"loop_tick_ms={tick_ms:.2f} total_s={time.perf_counter() - t_start:.1f}")
     print(json.dumps(kernels), flush=True)
     print(card_line, flush=True)
     print(json.dumps({

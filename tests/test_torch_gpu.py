@@ -1,4 +1,5 @@
-"""The Riccati CUDA kernel on the card, at the edges of what it takes.
+"""The CUDA kernels on the card (Riccati K1, plant P1), at the edges of what
+they take.
 
 These tests need an NVIDIA GPU and nvcc; elsewhere they skip.  Run them with
 
@@ -19,7 +20,16 @@ widths against the runtime-sized one, float64, and what the wrapper refuses.
 import pytest
 import torch
 
+from upright_tpu_torch.sim import contact
 from upright_tpu_torch.solver import riccati
+from upright_tpu_torch.tools.plant_data import (
+    F32_TOL,
+    float32_witness,
+    max_errors,
+    objects_to,
+    plant_for,
+    tick_inputs,
+)
 from upright_tpu_torch.tools.stage_data import stage_data
 
 pytestmark = pytest.mark.gpu
@@ -150,3 +160,88 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(card):
         riccati.riccati_backward(
             *(torch.as_tensor(a, dtype=torch.float32, device=card) for a in huge), reg=REG)
     assert riccati.launch_count == before  # nothing was launched
+
+
+# -- the plant's contact kernel P1 ----------------------------------------------
+
+
+def plant_case(card, demo, arrangement, friction, batch, dtype, diverge=()):
+    """One tick's inputs made on the CPU in float64, on the card as dtype,
+    and the plain version's float64 result on the card."""
+    sim = plant_for(demo, arrangement, friction)
+    frames, objects, params = tick_inputs(sim, batch, seed=batch, diverge=diverge)
+    tables = sim.tables.to(device=card)
+    f64 = (frames.to(card), objects_to(objects, card, torch.float64),
+           {k: v.to(card) for k, v in params.items()})
+    ref = contact.advance_objects_plain(tables, sim.contact, *f64)
+    inputs = (frames.to(card, dtype), objects_to(objects, card, dtype),
+              {k: v.to(card, dtype) for k, v in params.items()})
+    return sim, tables.to(dtype=dtype), inputs, ref
+
+
+@pytest.mark.parametrize(
+    "demo,arrangement,friction,batch,diverge",
+    [
+        ("thing_demo", None, "stiction", 1, ()),
+        ("thing_demo", None, "stiction", 64, ()),
+        ("thing_demo", None, "regularized", 8, ()),
+        ("ur10_demo", "box_arch", "stiction", 8, ()),
+        ("ur10_demo", "blue_cups", "stiction", 2, ()),  # 7 objects, 112 slots: four warps
+        ("ur10_demo", "simulation_box_with_fixture", "stiction", 4, ()),
+        ("thing_demo", None, "stiction", 4, (0, 2)),
+    ],
+    ids=["thing_b1", "thing_b64", "regularized", "stacked", "cups", "fixture", "latch"],
+)
+def test_plant_kernel_float64_matches_plain(card, demo, arrangement, friction, batch, diverge):
+    """float64 kernel against the float64 plain version over one tick: 1e-10
+    absolute, identical contact and latch flags (see chip_smoke.py)."""
+    sim, tables, inputs, ref = plant_case(card, demo, arrangement, friction, batch,
+                                          torch.float64, diverge)
+    before = contact.launch_count
+    out = contact.advance_objects(tables, sim.contact, *inputs)
+    torch.cuda.synchronize()
+    assert contact.launch_count == before + 1
+    err, same = max_errors(out, ref)
+    assert same and max(err.values()) < 1e-10, err
+
+
+def test_plant_kernel_float32_tracks_float64(card):
+    """float32 kernel within chip_smoke.py's float32 limits
+    (tools/plant_data.py F32_TOL) of the witness, the plain version in
+    float32 on the same inputs, which the control exceeds in every field; so it
+    is as far from the float64 result as float32 rounding puts the witness."""
+    sim, tables, inputs, ref = plant_case(card, "thing_demo", None, "stiction", 64,
+                                          torch.float32)
+    out = contact.advance_objects(tables, sim.contact, *inputs)
+    witness, control = float32_witness(tables, sim.contact, *inputs)
+    torch.cuda.synchronize()
+    assert out.r.dtype == torch.float32
+    err, _same = max_errors(out, witness)
+    err_ctl, _ = max_errors(control, witness)
+    err_ref, err_wit = max_errors(out, ref)[0], max_errors(witness, ref)[0]
+    for field, tol in F32_TOL.items():
+        assert err[field] <= tol, (field, err)
+        assert err_ref[field] <= err_wit[field] + tol, (field, err_ref, err_wit)
+    assert all(err_ctl[k] > tol for k, tol in F32_TOL.items()), err_ctl
+
+
+def test_plant_wrapper_refuses_what_the_kernel_does_not_take(card):
+    sim, tables, (frames, objects, params), _ref = plant_case(
+        card, "thing_demo", None, "stiction", 2, torch.float32)
+    before = contact.launch_count
+    with pytest.raises(TypeError, match="one dtype"):
+        contact.advance_objects(tables, sim.contact, frames, objects.replace(r=objects.r.double()),
+                                params)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        contact.advance_objects(tables, sim.contact, frames.bfloat16(), objects, params)
+    with pytest.raises(ValueError, match="is on cpu"):
+        contact.advance_objects(tables, sim.contact, frames, objects.replace(q=objects.q.cpu()),
+                                params)
+    many = plant_for("ur10_demo", "blue_cups").tables
+    big = many.__class__(n_obj=many.n_obj, s_max=many.s_max, k_max=many.k_max,
+                         slot_int=many.slot_int.repeat(3, 1), slot_geom=many.slot_geom.repeat(3, 1),
+                         obj_int=many.obj_int, obj_data=many.obj_data)
+    with pytest.raises(ValueError, match="at most 256"):
+        contact.advance_objects(big.to(device=card, dtype=torch.float32), sim.contact, frames,
+                                objects, params)
+    assert contact.launch_count == before  # nothing was launched

@@ -12,6 +12,7 @@ import torch
 
 import upright_tpu_torch
 import upright_tpu_torch.config as tcfg
+from upright_tpu_torch import _build
 from upright_tpu_torch.convert import (
     balance_model_from_numpy,
     params_from_numpy,
@@ -36,7 +37,10 @@ def port_modules():
 
 def test_importing_the_port_pulls_in_no_jax():
     names = port_modules()
-    assert "upright_tpu_torch.solver.riccati" in names and len(names) >= 20
+    for module in ("solver.riccati", "sim.contact", "sim.simulation", "solver.mpc",
+                   "runtime.device_loop", "scripts.mpc_sim", "core.logging"):
+        assert f"upright_tpu_torch.{module}" in names
+    assert len(names) >= 30
     code = (
         "import importlib, sys\n"
         f"for n in {names!r}:\n"
@@ -147,3 +151,69 @@ def test_convert_roundtrips():
     bm = balance_model_from_numpy(model, **CPU64)
     assert bm.num_objects == 1 and bm.num_contacts == 4
     np.testing.assert_array_equal(bm.span.numpy(), model["span"])
+
+
+def test_closed_loop_entry_points_default_to_the_card():
+    """The plant, the manager, the device loop (through its problem) and the
+    closed-loop script ask for the card unless given device='cpu', and raise
+    without one."""
+    if has_card():
+        pytest.skip("this machine has a card: the default device exists")
+    from upright_tpu_torch.runtime.device_loop import build_device_loop
+    from upright_tpu_torch.scripts.mpc_sim import run_closed_loop
+    from upright_tpu_torch.sim.simulation import UprightSimulation
+    from upright_tpu_torch.solver.mpc import ControllerManager
+
+    conf = small_problem()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        UprightSimulation(conf["simulation"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ControllerManager.from_config(conf)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_closed_loop(conf, duration=0.01)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_problem(conf, N=3)
+    # the device loop runs where its problem was built; a plant of another
+    # dtype is refused
+    prob = build_problem(conf, N=3, **CPU64)
+    build_device_loop(prob, UprightSimulation(conf["simulation"], **CPU64))
+    with pytest.raises(ValueError, match="dtype"):
+        build_device_loop(prob, UprightSimulation(conf["simulation"], device="cpu"))
+
+
+def test_each_library_lists_its_own_headers():
+    """Every CUDA source and header under csrc/ belongs to a library, and each
+    library lists exactly the csrc/ headers its source includes: a library is
+    rebuilt for a change of its own files only."""
+    import re
+
+    files = {f.name for f in _build.CSRC_DIR.iterdir() if f.suffix in (".cu", ".cuh")}
+    listed = {f for deps in _build.SOURCES.values() for f in deps}
+    assert files == listed
+    for name, (src, *headers) in _build.SOURCES.items():
+        assert src == f"{name}.cu"
+        text = (_build.CSRC_DIR / src).read_text()
+        included = set(re.findall(r'#include\s+"([^"]+)"', text))
+        assert included == set(headers), name
+
+
+def test_rebuild_only_for_a_change_of_its_own_files(tmp_path, monkeypatch):
+    import os
+
+    csrc, build = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    build.mkdir()
+    for deps in _build.SOURCES.values():
+        for f in deps:
+            (csrc / f).write_text("//")
+    monkeypatch.setattr(_build, "CSRC_DIR", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", build)
+    assert all(_build.is_stale(n) for n in _build.SOURCES)
+    for n in _build.SOURCES:
+        _build.library_path(n).write_text("")
+        os.utime(_build.library_path(n), (2e9, 2e9))
+    assert not any(_build.is_stale(n) for n in _build.SOURCES)
+    os.utime(csrc / "plant.cu", (3e9, 3e9))
+    assert _build.is_stale("plant") and not _build.is_stale("riccati")
+    os.utime(csrc / "async_copy.cuh", (3e9, 3e9))
+    assert _build.is_stale("riccati")

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into ``build/lib<name>.so`` (``build/`` is git-ignored), then
 loaded with ``ctypes``.  No PyTorch headers are involved, so a build takes
-seconds.  The library is rebuilt when any file under ``csrc/`` (the source or
-a header it includes) is newer than it.
+seconds.  A library is rebuilt when its own source, or a header that source
+includes (``SOURCES``), is newer than it; ``build`` starts one ``nvcc`` per
+stale library, all at once.
 """
 
 from __future__ import annotations
@@ -18,6 +19,12 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
+
+# Each library: its source, then the headers under csrc/ that it includes.
+SOURCES = {
+    "riccati": ("riccati.cu", "async_copy.cuh"),
+    "plant": ("plant.cu",),
+}
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -42,32 +49,50 @@ def find_nvcc():
     return nvcc
 
 
-def build_command(name, extra_flags=()):
-    """The nvcc command line that builds ``csrc/<name>.cu``."""
-    src = CSRC_DIR / f"{name}.cu"
-    out = BUILD_DIR / f"lib{name}.so"
-    return [find_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", str(out), str(src)], src, out
+def library_path(name):
+    return BUILD_DIR / f"lib{name}.so"
+
+
+def is_stale(name):
+    """True when lib<name>.so is missing or older than its source or headers."""
+    out = library_path(name)
+    newest = max((CSRC_DIR / f).stat().st_mtime for f in SOURCES[name])
+    return not out.exists() or out.stat().st_mtime < newest
+
+
+def build(names, extra_flags=(), verbose=False):
+    """Compile the stale libraries among ``names``: one ``nvcc`` each, all
+    started together, each written to a temporary file and moved into place
+    when it succeeds (a concurrent build never loads a partial file)."""
+    running = {}
+    for name in names:
+        if not is_stale(name):
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = library_path(name).with_suffix(f".{os.getpid()}.tmp.so")
+        cmd = [find_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp),
+               str(CSRC_DIR / SOURCES[name][0])]
+        running[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                          text=True), tmp)
+    failed = []
+    for name, (proc, tmp) in running.items():
+        stdout, stderr = proc.communicate()
+        if verbose:
+            print(f"[nvcc {SOURCES[name][0]}]\n{stdout}{stderr}", flush=True)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {SOURCES[name][0]} (exit {proc.returncode}):\n"
+                          f"{stdout}\n{stderr}")
+        else:
+            os.replace(tmp, library_path(name))
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def load_library(name, extra_flags=(), verbose=False):
     """Compile (if needed) and load ``csrc/<name>.cu``; returns the CDLL."""
     if name in _LIBS:
         return _LIBS[name]
-    cmd, src, out = build_command(name, extra_flags)
-    newest = max(f.stat().st_mtime for f in CSRC_DIR.iterdir())
-    if not out.exists() or out.stat().st_mtime < newest:
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
-        cmd[cmd.index(str(out))] = str(tmp)
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if verbose:
-            print(proc.stdout + proc.stderr, flush=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed for {src.name} (exit {proc.returncode}):\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
-        os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file
-    lib = ctypes.CDLL(str(out))
+    build([name], extra_flags, verbose)
+    lib = ctypes.CDLL(str(library_path(name)))
     _LIBS[name] = lib
     return lib

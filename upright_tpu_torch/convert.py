@@ -1,11 +1,12 @@
 """Carry problem data and solver state across as plain numpy arrays.
 
 This system has no learned weights.  What the JAX package and the port must
-share to compute the same thing is the problem data and the solver state.
-Each function takes plain numpy arrays (as ``np.asarray`` gives them from the
-other package's ``SolverState``, parameter tree or ``BalanceModel``) and
-returns the port's dataclasses on ``device`` as ``dtype``, adding the leading
-batch axis where the port is batch-first.  Nothing here imports JAX.
+share to compute the same thing is the problem data, the solver state and
+the plant's state.  Each function takes plain numpy arrays (as ``np.asarray``
+gives them from the other package's ``SolverState``, parameter tree,
+``BalanceModel`` or ``SimState``) and returns the port's dataclasses on
+``device`` as ``dtype``, adding the leading batch axis where the port is
+batch-first; the ``*_to_numpy`` functions go back.  Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -71,3 +72,77 @@ def params_from_numpy(params, batch=None, device="cuda", dtype=torch.float32):
 def balance_model_from_numpy(arrays, device="cuda", dtype=torch.float32):
     """dict of the BalanceModel's stacked arrays -> BalanceModel of tensors."""
     return BalanceModel(**{n: _tensor(arrays[n], device, dtype) for n in _MODEL_FIELDS})
+
+
+def _anchor_counts(sim):
+    return [(len(sp.surfaces), len(sp.vertices_local)) for sp in sim.specs]
+
+
+def sim_state_from_numpy(arrays, sim, device="cuda", dtype=torch.float32):
+    """The plant's state as numpy arrays -> the port's batch-first SimState.
+
+    ``arrays`` is ``{"t", "q", "v", "objects": {"r", "q", "v", "w",
+    "anchors", "anchor_valid", "diverged"}}`` of one instance, as the JAX
+    package's ``SimState`` gives them (``anchors``/``anchor_valid``: tuples
+    of per-object (n_surf_i, k_i, 2) / (n_surf_i, k_i) arrays, or None;
+    ``diverged`` (n_obj,) or None).  The result has a batch axis of 1, with
+    the anchors padded into ``(1, n_obj, s_max, k_max, 2)``.  ``sim`` is the
+    port's ``UprightSimulation`` of the same config.
+    """
+    from upright_tpu_torch.sim.simulation import ObjectsState, SimState
+
+    dev = resolve_device(device)
+    objs = arrays["objects"]
+
+    def t(a):
+        return _tensor(a, dev, dtype).unsqueeze(0)
+
+    anchors = anchor_valid = None
+    if objs.get("anchors") is not None:
+        shape = (1, sim.n_obj, sim.tables.s_max, sim.tables.k_max)
+        anchors = torch.zeros(shape + (2,), dtype=dtype, device=dev)
+        anchor_valid = torch.zeros(shape, dtype=torch.bool, device=dev)
+        for i, (S, K) in enumerate(_anchor_counts(sim)):
+            anchors[0, i, :S, :K] = _tensor(objs["anchors"][i], dev, dtype)
+            anchor_valid[0, i, :S, :K] = torch.as_tensor(np.asarray(objs["anchor_valid"][i]),
+                                                         device=dev)
+    diverged = None
+    if objs.get("diverged") is not None:
+        diverged = torch.as_tensor(np.asarray(objs["diverged"], dtype=bool), device=dev)[None]
+    objects = ObjectsState(r=t(objs["r"]), q=t(objs["q"]), v=t(objs["v"]), w=t(objs["w"]),
+                           anchors=anchors, anchor_valid=anchor_valid, diverged=diverged)
+    return SimState(t=t(arrays["t"]).reshape(1), q=t(arrays["q"]), v=t(arrays["v"]),
+                    objects=objects)
+
+
+def sim_state_to_numpy(state, sim, index=0):
+    """Instance ``index`` of the port's SimState -> the numpy arrays of
+    ``sim_state_from_numpy`` (the anchors as per-object tuples again)."""
+    objs = state.objects
+
+    def a(x):
+        return x[index].detach().cpu().numpy()
+
+    out = {"r": a(objs.r), "q": a(objs.q), "v": a(objs.v), "w": a(objs.w),
+           "anchors": None, "anchor_valid": None, "diverged": None}
+    if objs.anchors is not None:
+        counts = _anchor_counts(sim)
+        out["anchors"] = tuple(a(objs.anchors[:, i, :S, :K]) for i, (S, K) in enumerate(counts))
+        out["anchor_valid"] = tuple(a(objs.anchor_valid[:, i, :S, :K])
+                                    for i, (S, K) in enumerate(counts))
+    if objs.diverged is not None:
+        out["diverged"] = a(objs.diverged)
+    return {"t": a(state.t), "q": a(state.q), "v": a(state.v), "objects": out}
+
+
+_PLANT_PARAMS = ("mass", "inertia", "mu", "com_offset")
+
+
+def plant_params_from_numpy(params, device="cuda", dtype=torch.float32):
+    """The plant's runtime parameters (``default_params``: mass, inertia, mu,
+    com_offset) as numpy arrays -> tensors, with or without a batch axis."""
+    return {k: _tensor(params[k], resolve_device(device), dtype) for k in _PLANT_PARAMS}
+
+
+def plant_params_to_numpy(params):
+    return {k: params[k].detach().cpu().numpy() for k in _PLANT_PARAMS}

@@ -135,6 +135,18 @@ def quat_multiply(q0, q1):
     )
 
 
+def quat_integrate(q, omega, dt):
+    """Integrate quaternion q forward by world-frame angular velocity omega
+    over dt: the axis-angle increment exp(dt omega / 2) applied on the left.
+    Entries stay (..., 1)-shaped (see _mat1)."""
+    nw = _norm(omega)
+    half = 0.5 * (nw * dt)
+    axis = omega / torch.clamp(nw, min=1e-12)
+    dq = torch.cat([axis * torch.sin(half), torch.cos(half)], dim=-1)
+    q_new = quat_multiply(dq, q)
+    return q_new / _norm(q_new)
+
+
 def quat_slerp(q0, q1, alpha):
     """Spherical linear interpolation from q0 (alpha=0) to q1 (alpha=1)."""
     alpha = torch.as_tensor(alpha, dtype=q0.dtype, device=q0.device).unsqueeze(-1)

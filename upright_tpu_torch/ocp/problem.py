@@ -31,7 +31,7 @@ import upright_tpu_torch.config as cfg_mod
 from upright_tpu_torch import resolve_device
 from upright_tpu_torch.core import balance as bal
 from upright_tpu_torch.core.balance import BalanceModel
-from upright_tpu_torch.core.math import orientation_error, rot_to_quat
+from upright_tpu_torch.core.math import dC_dtt, orientation_error, rot_to_quat
 from upright_tpu_torch.kinematics.robot import RobotModel, build_robot_model
 from upright_tpu_torch.ocp.reference import TargetTrajectory
 from upright_tpu_torch.solver.ocp import OCP, IneqBoxRows, SolverState
@@ -87,6 +87,51 @@ class UprightProblem:
     force_scale: np.ndarray = dataclasses.field(
         default_factory=lambda: np.zeros(0)
     )
+
+    def _at(self, x, u, t, target):
+        """(x, u, stage-0 params) as tensors of the problem, for one (x, u, t)."""
+        x = torch.as_tensor(x, dtype=self.ocp.dtype, device=self.ocp.device)
+        u = torch.as_tensor(u, dtype=self.ocp.dtype, device=self.ocp.device)
+        params = self.stage_params(t, target)
+        return x, u, {k: v[0] for k, v in params["stage"].items()}
+
+    def evaluate_constraints(self, x, u, t=0.0, target=None):
+        """All constraint groups at one (x, u, t), split by named group (the
+        per-named-constraint values the closed loop logs)."""
+        x, u, p0 = self._at(x, u, t, target)
+        r, _W = self.ocp.stage_residuals(x, u, p0)
+        h = self.ocp.ineq(x, u, p0)
+        out = {
+            "equality": self.ocp.eq(x, u, p0),
+            "inequality": h,
+            "ee_pose_error": r[:6],
+        }
+        off = 0
+        for name, n_rows in self.ineq_groups:
+            out[name] = h[off : off + n_rows]
+            off += n_rows
+        return out
+
+    def diagnostics(self, x, u, t=0.0, target=None):
+        """Scalar diagnostics tracked per step: the angle between the tray
+        normal and the total acceleration, the norm of the rotation matrix's
+        second derivative, the stage cost, and the contact forces in newtons."""
+        x, u, p0 = self._at(x, u, t, target)
+        ee = self.robot.ee_state(x[: self.dims.robot_x])
+        total_acc = ee.a_ew_w - self.gravity
+        n_w = ee.C_we[:, 2]  # C_we @ e_z
+        cosang = (n_w * total_acc).sum(-1) / torch.clamp(
+            torch.linalg.vector_norm(total_acc), min=1e-9
+        )
+        orn_err = torch.arccos(torch.clamp(cosang, -1.0, 1.0))
+        ddC = dC_dtt(ee.C_we, ee.w_ew_w, ee.alpha_ew_w)
+        return {
+            "orn_err": orn_err,
+            "ddC_we_norm": torch.linalg.matrix_norm(ddC),
+            "cost": self.ocp.stage_cost(x, u, p0),
+            "contact_forces": u[self.dims.robot_u :]
+            * torch.as_tensor(self.force_scale, dtype=u.dtype, device=u.device),
+        }
 
     def shift_warm_start(self, state: SolverState, shift):
         """Time-shift the warm start by ``shift`` nodes (fractional OK).

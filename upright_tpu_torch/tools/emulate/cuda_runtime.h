@@ -1,8 +1,8 @@
 // Stand-in for <cuda_runtime.h> that lets a C++ compiler build the device code
-// of csrc/riccati.cu for the CPU: one pthread plays one CUDA thread, a pthread
-// barrier per block plays __syncthreads, and a barrier per warp with an
-// exchange buffer plays __shfl_sync.  Only what that kernel uses is here.
-// See ../emulate_riccati.py.
+// of csrc/riccati.cu and csrc/plant.cu for the CPU: one pthread plays one CUDA
+// thread, a pthread barrier per block plays __syncthreads, and a barrier per
+// warp with an exchange buffer plays __shfl_sync.  Only what those kernels use
+// is here.  See ../emulate_riccati.py and ../emulate_plant.py.
 
 #pragma once
 
@@ -43,6 +43,10 @@ T __shfl_sync(unsigned, T v, int src_lane) {
 }
 
 inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
+using std::cos;
+using std::fabs;
 using std::fma;
+using std::isfinite;
 using std::nan;
+using std::sin;
 using std::sqrt;
