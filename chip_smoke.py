@@ -9,7 +9,8 @@ holds every hand-written kernel against its plain PyTorch version:
   1. the card (name, power limit, torch / CUDA versions);
   2. builds both kernels from upright_tpu_torch/csrc/ (the Riccati kernel K1
      and the plant's contact kernel P1, one nvcc each, in parallel) and
-     prints registers, local memory and shared memory of each instantiation;
+     prints registers, local memory and shared memory of each instantiation
+     (P1: float32 and float64, one warp and block-wide, two friction models);
   3. K1 against its plain version (float64): the main-path shapes in
      float32 and float64, the wide-input route (nu = 45) in both, and a batch
      built to take the jitter fallback and to fail it (same NaN pattern);
@@ -22,8 +23,9 @@ holds every hand-written kernel against its plain PyTorch version:
   7. the plant's contact kernel P1 (csrc/plant.cu) against its plain
      version over one control tick (10 outer steps x 40 substeps):
      thing_demo at batch 1 and 64 with the mass, mu and CoM spread per
-     instance, a stacked arrangement (box_arch), the regularized friction
-     model and a batch that trips the divergence latch: float64 against the
+     instance, a stacked arrangement (box_arch), seven objects on four warps
+     (blue_cups, the block-wide route), the regularized friction model and a
+     batch that trips the divergence latch: float64 against the
      plain version, float32 against the plain version run in float32 on the
      same inputs (the witness), and a control that the float32 limits reject;
   8. the closed loop: thing_demo at full width on the device loop
@@ -31,7 +33,8 @@ holds every hand-written kernel against its plain PyTorch version:
      100 Hz (1.5 s) through both kernels: costs finite, the bottle within
      0.03 m of its place; then 10 ticks of the host loop (ControllerManager +
      UprightSimulation) against the device loop from the same start;
-  9. P1's times (batch 1 and 512) beside its bound and its plain version's,
+  9. P1's times (thing_demo at batch 1 and 512, box_arch and blue_cups at
+     batch 1) beside its bound and its plain version's,
      and the closed loop's host time per tick, replan and plant apart; then
      one JSON line describing each kernel (time, bound, launches), the card's
      name and power limit, and the final JSON line.
@@ -200,11 +203,16 @@ def main():
     build_s = time.perf_counter() - t0
     log(f"built csrc/riccati.cu and csrc/plant.cu in {build_s:.1f} s (set-up)")
     results["build_s"] = build_s
-    for (name, a), dt_ in zip(contact.instance_attrs().items(), (torch.float32, torch.float64)):
+    thing_plant = plant_for("thing_demo")
+    for name, a in contact.instance_attrs().items():
+        dt_ = torch.float64 if name.startswith("float64") else torch.float32
         log(f"  plant instance {name}: {a['registers']} registers, {a['local_bytes']} bytes of "
             f"local memory per thread, shared memory {a['static_smem_bytes']} static + "
-            f"{contact.smem_bytes(1, 16, dt_)} dynamic at thing_demo's 1 object and 16 slots")
+            f"{contact.smem_bytes(thing_plant.tables, thing_plant.object_substeps, dt_)} "
+            "dynamic at thing_demo's 1 object, 16 slots and 40 substeps")
     results["plant_instances"] = contact.instance_attrs()
+    check(all(a["local_bytes"] == 0 for a in results["plant_instances"].values()),
+          "no plant instance has a stack frame or spills (local memory 0)")
     attrs = riccati.instance_attrs()
     smem_at = {
         "float32 nx=27 nu=13": [(27, 13, torch.float32, False)],
@@ -549,6 +557,7 @@ def main():
         ("thing_b1", ("thing_demo", None, None), 1, ()),
         ("thing_b64", ("thing_demo", None, None), 64, ()),
         ("stacked_b8", ("ur10_demo", "box_arch", None), 8, ()),
+        ("cups_b2", ("ur10_demo", "blue_cups", None), 2, ()),
         ("regularized_b8", ("thing_demo", None, "regularized"), 8, ()),
         ("latch_b4", ("thing_demo", None, None), 4, (0, 2)),
     ]
@@ -556,7 +565,7 @@ def main():
         return ", ".join(f"{k} {v:.2e}" for k, v in err.items())
 
     plant_err32, plant_err64 = 0.0, 0.0
-    plant_inputs, plant_readings = {}, []
+    plant_inputs, plant_sims, plant_readings = {}, {}, []
     for label, (demo, arrangement, friction), B, diverge in plant_cases:
         sim_cpu = plant_for(demo, arrangement, friction)
         frames, objects, params = tick_inputs(sim_cpu, B, seed=B, diverge=diverge)
@@ -592,6 +601,7 @@ def main():
                                          "control_vs_witness": err_ctl,
                                          "float32_vs_float64": off64}
         plant_inputs[label] = (frames, objects, params)
+        plant_sims[label] = sim_cpu
     # every reading is printed before the first check
     for label, ref, out32, diverge, err64, same64, err32, err_ctl in plant_readings:
         check(same64 and max(err64.values()) <= PLANT_TOL_F64,
@@ -694,8 +704,13 @@ def main():
     log("== 9. plant kernel times (CUDA events, median) and the closed loop's host time per tick")
     tables32 = sim_l.tables
 
-    def plant_in(label, repeat=1):
+    def plant_in(label, repeat=1, n=None):
         frames, objects, params = plant_inputs[label]
+        if n is not None:  # the first n instances
+            frames, params = frames[:n], {k: v[:n] for k, v in params.items()}
+            objects = objects.replace(**{k: getattr(objects, k)[:n] for k in (
+                "r", "q", "v", "w", "anchors", "anchor_valid", "diverged")
+                if getattr(objects, k) is not None})
         f32 = objects_to(objects, dev, torch.float32)
         if repeat > 1:
             f32 = f32.replace(**{k: getattr(f32, k).repeat((repeat,) + (1,) * (getattr(f32, k).ndim - 1))
@@ -705,10 +720,18 @@ def main():
                  for k, v in params.items()})
 
     plant_times = {}
-    for name, inp in (("batch1", plant_in("thing_b1")), ("batch512", plant_in("thing_b64", 8))):
+    cups, arch = plant_sims["cups_b2"], plant_sims["stacked_b8"]
+    for name, inp, tables_, consts_ in (
+        ("batch1", plant_in("thing_b1"), tables32, sim_l.contact),
+        ("batch512", plant_in("thing_b64", 8), tables32, sim_l.contact),
+        ("box_arch_batch1", plant_in("stacked_b8", n=1),
+         arch.tables.to(device=dev, dtype=torch.float32), arch.contact),
+        ("blue_cups_batch1", plant_in("cups_b2", n=1),
+         cups.tables.to(device=dev, dtype=torch.float32), cups.contact),
+    ):
         B = inp[0].shape[0]
-        call = lambda: contact.advance_objects(tables32, sim_l.contact, *inp)  # noqa: E731
-        nbytes, flops = contact.plant_work(tables32, sim_l.contact, B, inp[0].shape[1], 4)
+        call = lambda: contact.advance_objects(tables_, consts_, *inp)  # noqa: E731
+        nbytes, flops = contact.plant_work(tables_, consts_, B, inp[0].shape[1], 4)
         t_bytes = nbytes / H100_BYTES_PER_S * 1e3
         t_ops = flops / H100_FP32_FLOPS * 1e3
         t, t_launch = cuda_median_ms(call, reps=20), cuda_launch_ms(call, reps=10, inner=5)
@@ -882,6 +905,8 @@ def main():
                          "16 contact slots, float32",
                 "ms_batch512": round(plant_times["batch512"]["ms"], 6),
                 "bound_ms_batch512": plant_times["batch512"]["bound_ms"],
+                "ms_box_arch_batch1": round(plant_times["box_arch_batch1"]["ms"], 6),
+                "ms_blue_cups_batch1": round(plant_times["blue_cups_batch1"]["ms"], 6),
                 "ms_per_launch": {k: round(v["ms_per_launch"], 6) for k, v in plant_times.items()},
                 "max_abs_err_float64": plant_err64,
                 "launches_per_tick": launches_loop_p1 / LOOP_TICKS,

@@ -217,3 +217,26 @@ def test_rebuild_only_for_a_change_of_its_own_files(tmp_path, monkeypatch):
     assert _build.is_stale("plant") and not _build.is_stale("riccati")
     os.utime(csrc / "async_copy.cuh", (3e9, 3e9))
     assert _build.is_stale("riccati")
+
+
+def test_plant_kernel_is_built_without_fused_multiply_adds(tmp_path, monkeypatch):
+    """nvcc gets -fmad=false for the plant kernel and only for it: with fused
+    multiply-adds its float32 result leaves the limits it is held to on the
+    card (PERF.md), which the CPU emulation cannot show."""
+    commands = {}
+
+    class Recorder:
+        def __init__(self, cmd, **_kw):
+            commands[cmd[-1]] = cmd
+            self.returncode = 1
+
+        def communicate(self):
+            return "", "recorded"
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "find_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(subprocess, "Popen", Recorder)
+    with pytest.raises(RuntimeError, match="recorded"):
+        _build.build(list(_build.SOURCES))
+    flags = {Path(src).stem: cmd for src, cmd in commands.items()}
+    assert "-fmad=false" in flags["plant"] and "-fmad=false" not in flags["riccati"]

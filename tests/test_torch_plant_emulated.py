@@ -1,7 +1,9 @@
 """The device code of the plant's CUDA kernel P1, run on the CPU against the
 kernel's plain version.
 
-The kernel itself runs only on a card (``tests/test_torch_gpu.py``,
+Between them the cases take both routes of the kernel (one warp for at most
+32 slots; block-wide for blue_cups and the fixture box) with both friction
+models.  The kernel itself runs only on a card (``tests/test_torch_gpu.py``,
 ``chip_smoke.py``).  Here ``upright_tpu_torch/tools/emulate_plant.py``
 compiles the device code of ``csrc/plant.cu`` with the host's C++ compiler,
 one pthread per CUDA thread, and runs it in float64 on one control tick (10
@@ -46,10 +48,19 @@ def harness(tmp_path_factory):
         ("thing_demo", None, "regularized", 2, ()),
         ("ur10_demo", "box_arch", "stiction", 2, ()),  # stacked: reactions, two surfaces
         ("ur10_demo", "box_arch", "regularized", 1, ()),
-        ("ur10_demo", "simulation_box_with_fixture", "stiction", 1, ()),  # fixture faces
+        # fixture faces: 84 slots, three warps (the block-wide route), pieces
+        # cut at the warps' edges
+        ("ur10_demo", "simulation_box_with_fixture", "stiction", 1, ()),
         ("thing_demo", None, "stiction", 3, (1,)),  # instance 1 trips the divergence latch
+        # 7 objects on 112 slots: four warps, the block-wide route
+        ("ur10_demo", "blue_cups", "stiction", 1, ()),
+        ("ur10_demo", "blue_cups", "regularized", 1, ()),
+        # stacked dice: a reaction on one warp, 77 substeps an outer step (more
+        # frames than lanes)
+        ("ur10_demo", "foam_die2", "stiction", 2, ()),
     ],
-    ids=["thing", "thing_regularized", "stacked", "stacked_regularized", "fixture", "latch"],
+    ids=["thing", "thing_regularized", "stacked", "stacked_regularized", "fixture", "latch",
+         "cups", "cups_regularized", "dice"],
 )
 def test_emulated_kernel_matches_plain(harness, demo, arrangement, friction, batch, diverge):
     sim = plant_for(demo, arrangement, friction)

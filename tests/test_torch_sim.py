@@ -125,6 +125,10 @@ CASES = {
     "ur10_stiction": ("ur10_demo", None, "stiction", None),
     "box_arch_stiction": ("ur10_demo", "box_arch", "stiction", None),
     "box_arch_regularized": ("ur10_demo", "box_arch", "regularized", None),
+    # seven cups on 112 contact slots: the plant kernel's block-wide route
+    "blue_cups_stiction": ("ur10_demo", "blue_cups", "stiction", None),
+    # two stacked dice, 77 substeps an outer step
+    "foam_die2_stiction": ("ur10_demo", "foam_die2", "stiction", None),
 }
 
 
@@ -146,7 +150,8 @@ def sims():
 @pytest.mark.parametrize(
     "demo,arrangement",
     [("thing_demo", None), ("ur10_demo", None), ("ur10_demo", "box_arch"),
-     ("ur10_demo", "simulation_box_with_fixture")],
+     ("ur10_demo", "simulation_box_with_fixture"), ("ur10_demo", "blue_cups"),
+     ("ur10_demo", "foam_die2")],
 )
 def test_specs_and_substeps_match(demo, arrangement):
     sc = sim_config(demo, arrangement)

@@ -31,6 +31,12 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 ]
 
+# Flags of one library.  The plant kernel rounds every product and sum on its
+# own, as its plain version does: a stiff contact amplifies the difference a
+# fused multiply-add makes until float32 leaves the limits it is held to
+# (tools/plant_data.py F32_TOL; PERF.md).
+LIBRARY_FLAGS = {"plant": ("-fmad=false",)}
+
 _LIBS = {}
 
 
@@ -70,8 +76,8 @@ def build(names, extra_flags=(), verbose=False):
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = library_path(name).with_suffix(f".{os.getpid()}.tmp.so")
-        cmd = [find_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp),
-               str(CSRC_DIR / SOURCES[name][0])]
+        cmd = [find_nvcc(), *NVCC_FLAGS, *LIBRARY_FLAGS.get(name, ()), *extra_flags,
+               "-o", str(tmp), str(CSRC_DIR / SOURCES[name][0])]
         running[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                           text=True), tmp)
     failed = []

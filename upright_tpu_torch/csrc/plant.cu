@@ -3,12 +3,12 @@
 // Advances the balanced objects of B instances through every inner substep of
 // one UprightSimulation.step (upright_tpu_torch/sim/contact.py): n_steps outer
 // steps of the robot, each cut into n_sub object substeps, over which the tray
-// frame is propagated from the outer step's EE motion.  It carries the
-// semantics of upright_tpu/sim/simulation.py, _step_impl's object branch
-// (:337-376) and _object_substep (:390-644).  That loop has no Pallas kernel:
-// the JAX package runs it as a lax.scan that XLA fuses.  Eager PyTorch would
-// launch about a thousand tensor operations per substep, 400 substeps per 100 Hz
-// control tick, so the port writes the loop as one kernel.
+// frame is propagated from the outer step's EE motion.  It replaces
+// upright_tpu/sim/simulation.py, _step_impl's object branch (:324-376) and
+// _object_substep (:390).  That loop has no Pallas kernel: the JAX package runs
+// it as a lax.scan that XLA fuses.  Eager PyTorch would launch about a thousand
+// tensor operations per substep, 400 substeps per 100 Hz control tick, so the
+// port writes the loop as one kernel.
 //
 // Per substep, for every contact slot (one object's vertex against one of its
 // support surfaces): penetration and tangent coordinates in the parent's
@@ -20,36 +20,85 @@
 // update, and the divergence freeze with its latch.
 //
 // What bounds it on this card.  Not bytes and not operations: one tick of
-// thing_demo moves a few kilobytes and does about 3 MFLOP per instance.  The
-// loop is a chain of n_steps * n_sub dependent substeps, two barriers each, and
-// inside a substep a dependent chain of a few hundred instructions (two
-// quaternion-to-rotation conversions, a Rodrigues rotation, three square
-// roots, divisions) that one warp per instance cannot hide.  At batch 1 the
-// time is that chain's latency; at a large batch, blocks share the SMs.
-//
-// What the design does about it (simple and right first).
-//   - One block per instance, one thread per slot, the block padded to a whole
-//     number of warps (thing_demo: 16 slots, one warp).  The objects' state and
-//     per-object constants live in shared memory for the whole launch; each
-//     slot's geometry and its stiction anchor live in that thread's registers,
-//     so nothing goes to device memory between substeps.
-//   - A substep is two phases split by barriers: every slot thread forms its
-//     force, torque and reaction torque into shared memory; then one thread per
-//     object sums its slots and the reactions of the slots it supports (in slot
-//     order), integrates, and writes the new state.
-//   - Every thread computes the substep's tray frame itself (Rodrigues), which
-//     costs less than a barrier.  The offsets tau * dt_obj and 0.5 * (tau *
-//     dt_obj)^2 are rounded to float32, as the reference's scan computes them.
-//   - The 3 x 3 world-frame inertia solve is Cramer's rule (the plain version
-//     and the reference use an LU solve; the two agree to rounding on these
-//     well-conditioned inertias).
-//   - Clamps propagate NaN as the reference's minimum / maximum do, so a
-//     non-finite state trips the divergence latch as it does there.
-//   - float32 and float64 instantiations; float64 is what holds the kernel to
-//     its plain version at 1e-10.
+// thing_demo moves a few kilobytes and does about 2 MFLOP per instance.  It is
+// the dependent chain: n_steps * n_sub substeps in sequence, and inside each
+// the path from the objects' state through the slot forces and their sum to
+// the new state.  One warp per instance runs that chain with nothing to hide
+// its latency, at batch 1 and, since 512 one-warp blocks give each scheduler
+// of the 132 SMs about one warp, at batch 512 too.  So the design shortens the
+// chain and moves what does not depend on the state off it:
+//   - One block per instance, one thread per slot, padded to whole warps.  A
+//     block of one warp (at most 32 slots: thing_demo, box_arch, foam_die2)
+//     synchronises with __syncwarp; a larger one (blue_cups, the fixture box)
+//     with __syncthreads.  Two instantiations per type and friction model.
+//   - The n_sub tray frames of an outer step (R, p, v, w) are formed at its
+//     start by the block's lanes together into shared memory, not by every
+//     lane at every substep.  A slot on the tray reads its parent's pose from
+//     the frame row, a slot on an object from that object's state row: the two
+//     rows have one layout, so the choice is a pointer and not a branch.
+//   - Each object's rotation matrix is kept in shared memory beside its
+//     quaternion; the integrating lane writes it with the new state, so no
+//     slot converts a quaternion.
+//   - What does not change in a launch is computed once: 1/m, m g, the
+//     inverse local inertia (the world solve is then R I^-1 R^T applied in the
+//     body frame, no division),
+//     each slot's prefiltered damping c_v and its dt n_eff w_v (|R vc| = |vc|
+//     for a rigid body), each object's capped gains.
+//   - The slot phase has no branch that diverges: padded lanes repeat a real
+//     slot, and every lane also forms the inputs of its object's integration
+//     that depend only on the state before the substep (the gyroscopic term,
+//     the freeze test).
+//   - The sums run across lanes: a segmented suffix scan with warp shuffles
+//     over each piece (a run of slots of one object and surface within one
+//     warp), whose first lane writes the piece's force and torque to the
+//     object's rows in shared memory and, for a piece resting on an object,
+//     the reaction to that object's rows.  The rows of an object are one
+//     contiguous range (contact.py builds them with the tables), so its
+//     integrating lane adds a few rows and scans no slots.
+//   - Each object's integration runs on one lane; the others compute the same
+//     or a neighbouring object's and discard it.  Sines and cosines go through
+//     sincospi, whose exact reduction leaves no slow path and no stack frame.
+// The sums, the solve and the reciprocals change the order of rounding only:
+// float64 agrees with the plain version to 1e-10.  Division and square roots
+// stay IEEE (no fast math), and _build.py compiles this file with
+// -fmad=false: every product and sum is rounded on its own, as the plain
+// version rounds it, because a stiff contact amplifies what a fused
+// multiply-add changes until float32 blue_cups leaves the limits it is held to
+// (tools/plant_data.py F32_TOL).  Clamps propagate NaN as the reference's
+// minimum / maximum do, so a non-finite state trips the divergence latch as
+// it does there; the substep offsets tau * dt_obj and 0.5 * (tau * dt_obj)^2
+// are rounded to float32, as the reference's scan computes them.
 
 #include <cuda_runtime.h>
 
+// Cycle marks for tools/plant_phases.py.  Built with -DPLANT_PHASE_CLOCK,
+// thread 0 of a one-block launch reads the SM's clock between the phases of
+// every substep, adds the differences up per phase and prints the totals;
+// otherwise the marks are empty.
+#ifdef PLANT_PHASE_CLOCK
+#include <stdio.h>
+#define PHASE_CLOCK_BEGIN()                                                     \
+  const bool phase_clock = gridDim.x == 1 && threadIdx.x == 0;                  \
+  long long phase_sum[5] = {0, 0, 0, 0, 0};                                     \
+  const long long phase_start = clock64();                                      \
+  long long phase_t = phase_start
+#define PHASE_MARK(i)                                                           \
+  if (phase_clock) {                                                            \
+    const long long phase_now = clock64();                                      \
+    phase_sum[i] += phase_now - phase_t;                                        \
+    phase_t = phase_now;                                                        \
+  }
+#define PHASE_CLOCK_END(substeps)                                               \
+  if (phase_clock)                                                              \
+  printf("PHASES frames %lld slots %lld reduction %lld integration %lld "       \
+         "barriers %lld total %lld substeps %d\n",                              \
+         phase_sum[0], phase_sum[1], phase_sum[2], phase_sum[3], phase_sum[4],  \
+         clock64() - phase_start, (int)(substeps))
+#else
+#define PHASE_CLOCK_BEGIN()
+#define PHASE_MARK(i)
+#define PHASE_CLOCK_END(substeps)
+#endif
 // The layout sim/contact.py's _PlantArgs mirrors.
 struct PlantArgs {
   const void* frames;     // (B, n_steps, 24): R (9, row-major), p, v, w, a, al of the EE
@@ -57,7 +106,7 @@ struct PlantArgs {
                           //   max depth, vertex 3 (all in the parent's / object's frame)
   const int* slot_int;    // (n_slots, 4): object, parent (-1 = EE), surface, vertex
   const void* obj_data;   // (n_obj, 5): n_eff, L2, nominal CoM in the EE frame 3
-  const int* obj_int;     // (n_obj, 2): first slot, slot count
+  const int* obj_int;     // (n_obj, 2): first slot, slot count (not read: the pieces below)
   const void* mass;       // (B, n_obj)
   const void* inertia;    // (B, n_obj, 3, 3), local frame
   const void* mu;         // (B, n_obj)
@@ -71,22 +120,34 @@ struct PlantArgs {
   double gravity[3];
   double k_contact, c_contact, v_slip, max_force, freeze, dt_obj;
   int batch, n_steps, n_sub, n_obj, n_slots, s_max, k_max, stiction, has_diverged;
+  // the pieces (see above), built with the tables
+  const int* slot_piece;  // (n_slots, 3): last slot of the slot's piece; for the first slot of
+                          //   a piece its own row and its reaction row (-1: none), else -1, -1
+  const int* obj_rows;    // (n_obj, 2): first row, row count
+  int n_rows, max_piece, has_reactions;
 };
 
 namespace {
 
 constexpr int kMaxSlots = 256;
 constexpr int kMaxObjects = 32;
+constexpr int kWarp = 32;
 constexpr int kFrameDim = 24;
 constexpr int kSlotGeomDim = 18;
 constexpr int kObjDataDim = 5;
-constexpr int kSlotOut = 9;  // force, torque, reaction torque
 
-// per-object fields in shared memory
-enum ObjField {
-  kR = 0, kQ = 3, kV = 7, kW = 10, kMass = 13, kMu = 14, kK = 15, kC = 16, kImin = 17,
-  kNeff = 18, kInertia = 19, kComOff = 28, kComNom = 31, kObjStride = 34
+// A pose-and-twist row in shared memory, the same for a substep's tray frame
+// and for an object's state: R (9, row-major), position, velocity, angular
+// velocity; an object's row goes on with its quaternion.
+enum Row { kRot = 0, kPos = 9, kVel = 12, kAng = 15, kQuat = 18, kRowStride = 24 };
+// per-object constants in shared memory
+enum ObjConst {
+  kInvMass = 0, kWeight = 1, kInertia = 4, kInvInertia = 13, kComNom = 22, kCapK = 25,
+  kCapC = 26, kMu = 27, kIMin = 28, kNeff = 29, kConstStride = 30
 };
+constexpr int kRowSum = 6;  // force 3, torque 3
+
+enum Phase { kFrames = 0, kSlots = 1, kReduction = 2, kIntegration = 3, kBarriers = 4 };
 
 // minimum / maximum that return x when it is NaN, as jnp.minimum / maximum do
 template <typename T>
@@ -111,10 +172,20 @@ __device__ __forceinline__ void matvec3(const T* R, const T* a, T* out) {
   for (int i = 0; i < 3; ++i) out[i] = R[3 * i] * a[0] + R[3 * i + 1] * a[1] + R[3 * i + 2] * a[2];
 }
 
+// R^T a
 template <typename T>
-__device__ __forceinline__ void quat_to_rot(const T* qin, T* R) {
-  const T n = sqrt(qin[0] * qin[0] + qin[1] * qin[1] + qin[2] * qin[2] + qin[3] * qin[3]);
-  const T x = qin[0] / n, y = qin[1] / n, z = qin[2] / n, w = qin[3] / n;
+__device__ __forceinline__ void matTvec3(const T* R, const T* a, T* out) {
+  for (int i = 0; i < 3; ++i) out[i] = R[i] * a[0] + R[3 + i] * a[1] + R[6 + i] * a[2];
+}
+
+// sin(pi x) and cos(pi x): the reduction by whole multiples of pi is exact,
+// so there is no slow path for large arguments (and no stack frame)
+__device__ __forceinline__ void sincos_pi(float x, float* s, float* c) { sincospif(x, s, c); }
+__device__ __forceinline__ void sincos_pi(double x, double* s, double* c) { sincospi(x, s, c); }
+
+// Rotation matrix of the unit quaternion [x, y, z, w]
+template <typename T>
+__device__ __forceinline__ void unit_quat_to_rot(T x, T y, T z, T w, T* R) {
   const T xx = x * x, yy = y * y, zz = z * z, xy = x * y, xz = x * z, yz = y * z;
   const T wx = w * x, wy = w * y, wz = w * z;
   R[0] = T(1) - T(2) * (yy + zz); R[1] = T(2) * (xy - wz);         R[2] = T(2) * (xz + wy);
@@ -122,31 +193,23 @@ __device__ __forceinline__ void quat_to_rot(const T* qin, T* R) {
   R[6] = T(2) * (xz - wy);         R[7] = T(2) * (yz + wx);         R[8] = T(1) - T(2) * (xx + yy);
 }
 
-// x = A^-1 b by Cramer's rule (A is a world-frame inertia: symmetric positive definite)
+// The EE frame at substep tau of an outer step whose start is f0 (24 words):
+// R = exp([w0 dto]x) R0 (Rodrigues), p = p0 + dto v0 + h a0, v = v0 + dto a0,
+// w = w0 + dto al0, with dto = tau dt_obj and h = 0.5 dto^2 rounded to float32
+// as the reference's scan rounds them.  Written as a row (R, p, v, w).
 template <typename T>
-__device__ __forceinline__ void solve3(const T* A, const T* b, T* x) {
-  const T c00 = A[4] * A[8] - A[5] * A[7], c01 = A[5] * A[6] - A[3] * A[8];
-  const T c02 = A[3] * A[7] - A[4] * A[6];
-  const T det = A[0] * c00 + A[1] * c01 + A[2] * c02;
-  const T c10 = A[2] * A[7] - A[1] * A[8], c11 = A[0] * A[8] - A[2] * A[6];
-  const T c12 = A[1] * A[6] - A[0] * A[7];
-  const T c20 = A[1] * A[5] - A[2] * A[4], c21 = A[2] * A[3] - A[0] * A[5];
-  const T c22 = A[0] * A[4] - A[1] * A[3];
-  x[0] = (c00 * b[0] + c10 * b[1] + c20 * b[2]) / det;
-  x[1] = (c01 * b[0] + c11 * b[1] + c21 * b[2]) / det;
-  x[2] = (c02 * b[0] + c12 * b[1] + c22 * b[2]) / det;
-}
-
-// The EE frame at offset dto into an outer step: R = exp([w0 dto]x) R0 (Rodrigues),
-// p = p0 + dto v0 + h a0, v = v0 + dto a0, w = w0 + dto al0, with h = 0.5 dto^2.
-template <typename T>
-__device__ __forceinline__ void substep_frame(const T* f0, T dto, T h, T* R, T* p, T* v, T* w) {
-  const T* w0 = f0 + 15;
+__device__ __forceinline__ void substep_frame(const T* f0, int tau, double dt_obj, T* row) {
+  const float d32 = (float)tau * (float)dt_obj;
+  const float h32 = (0.5f * d32) * d32;
+  const T dto = (T)d32, h = (T)h32;
+  const T w0[3] = {f0[15], f0[16], f0[17]};
   const T nw = sqrt(dot3(w0, w0));
   const T th = nw * dto;
   const T nw_safe = at_least(nw, T(1e-12));
   const T ax = w0[0] / nw_safe, ay = w0[1] / nw_safe, az = w0[2] / nw_safe;
-  const T s = sin(th), c1 = T(1) - cos(th);
+  T s, c;
+  sincos_pi(th * T(0.318309886183790671537767526745028724), &s, &c);
+  const T c1 = T(1) - c;
   // K = [a]x, dR = I + s K + (1 - cos) K K, with K K = a a^T - (a . a) I
   const T dR[9] = {
       T(1) + c1 * -(az * az + ay * ay), -s * az + c1 * ax * ay, s * ay + c1 * ax * az,
@@ -154,265 +217,330 @@ __device__ __forceinline__ void substep_frame(const T* f0, T dto, T h, T* R, T* 
       -s * ay + c1 * az * ax, s * ax + c1 * az * ay, T(1) + c1 * -(ay * ay + ax * ax)};
   for (int i = 0; i < 3; ++i)
     for (int j = 0; j < 3; ++j)
-      R[3 * i + j] = dR[3 * i] * f0[j] + dR[3 * i + 1] * f0[3 + j] + dR[3 * i + 2] * f0[6 + j];
+      row[kRot + 3 * i + j] =
+          dR[3 * i] * f0[j] + dR[3 * i + 1] * f0[3 + j] + dR[3 * i + 2] * f0[6 + j];
   for (int i = 0; i < 3; ++i) {
-    p[i] = f0[9 + i] + dto * f0[12 + i] + h * f0[18 + i];
-    v[i] = f0[12 + i] + dto * f0[18 + i];
-    w[i] = w0[i] + dto * f0[21 + i];
+    row[kPos + i] = f0[9 + i] + dto * f0[12 + i] + h * f0[18 + i];
+    row[kVel + i] = f0[12 + i] + dto * f0[18 + i];
+    row[kAng + i] = w0[i] + dto * f0[21 + i];
   }
 }
 
-// Dynamic shared memory of one block, in bytes.
-template <typename T>
-__host__ __device__ long long smem_bytes(int n_obj, int n_slots) {
-  return (long long)(kObjStride * n_obj + kSlotOut * n_slots) * sizeof(T) + 4LL * n_slots;
+template <bool kOneWarp>
+__device__ __forceinline__ void block_sync() {
+  if (kOneWarp) __syncwarp();
+  else __syncthreads();
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kMaxSlots) plant_kernel(const PlantArgs a) {
+// Elements of dynamic shared memory of one block (see the kernel)
+__host__ __device__ inline long long smem_elems(int n_obj, int n_sub, int n_rows) {
+  return (long long)n_obj * (kRowStride + kConstStride) + (long long)n_sub * kRowStride +
+         (long long)n_rows * kRowSum;
+}
+
+// Sized for one block per SM: ptxas may then take up to 255 registers a
+// thread, and spills nothing in any instance.
+template <typename T, bool kOneWarp, bool kStiction>
+__global__ void __launch_bounds__(kOneWarp ? kWarp : kMaxSlots, 1)
+    plant_kernel(const PlantArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int tid = threadIdx.x, b = blockIdx.x;
   const int n_obj = a.n_obj, n_slots = a.n_slots;
-  T* so = reinterpret_cast<T*>(smem_raw);  // n_obj x kObjStride
-  T* ss = so + n_obj * kObjStride;         // n_slots x kSlotOut
-  int* sparent = reinterpret_cast<int*>(ss + n_slots * kSlotOut);
+  const int n_threads = (n_slots + kWarp - 1) / kWarp * kWarp;  // as plant_advance launches
+  T* so = reinterpret_cast<T*>(smem_raw);  // n_obj x kRowStride: the objects' state
+  T* oc = so + n_obj * kRowStride;         // n_obj x kConstStride: per-object constants
+  T* sf = oc + n_obj * kConstStride;       // n_sub x kRowStride: the outer step's frames
+  T* sr = sf + a.n_sub * kRowStride;       // n_rows x kRowSum: the pieces' sums
   const T dt = (T)a.dt_obj;
+  PHASE_CLOCK_BEGIN();
 
-  // -- load: objects (state, parameters, capped gains) ---------------------
-  bool div = false;
+  // -- load: objects (state, parameters, capped gains, inverse inertia) -------
   if (tid < n_obj) {
     const int i = tid, bi = b * n_obj + i;
-    T* o = so + i * kObjStride;
+    T* o = so + i * kRowStride;
+    T* k = oc + i * kConstStride;
+    T q[4];
+    for (int c = 0; c < 4; ++c) q[c] = ((const T*)a.q)[4 * bi + c];
     for (int c = 0; c < 3; ++c) {
-      o[kR + c] = ((const T*)a.r)[3 * bi + c];
-      o[kV + c] = ((const T*)a.v)[3 * bi + c];
-      o[kW + c] = ((const T*)a.w)[3 * bi + c];
-      o[kComOff + c] = ((const T*)a.com_offset)[3 * bi + c];
-      o[kComNom + c] = ((const T*)a.obj_data)[kObjDataDim * i + 2 + c];
+      o[kPos + c] = ((const T*)a.r)[3 * bi + c];
+      o[kVel + c] = ((const T*)a.v)[3 * bi + c];
+      o[kAng + c] = ((const T*)a.w)[3 * bi + c];
+      k[kComNom + c] = ((const T*)a.obj_data)[kObjDataDim * i + 2 + c];
     }
-    for (int c = 0; c < 4; ++c) o[kQ + c] = ((const T*)a.q)[4 * bi + c];
-    for (int c = 0; c < 9; ++c) o[kInertia + c] = ((const T*)a.inertia)[9 * bi + c];
+    for (int c = 0; c < 4; ++c) o[kQuat + c] = q[c];
+    const T n = sqrt(q[0] * q[0] + q[1] * q[1] + q[2] * q[2] + q[3] * q[3]);
+    unit_quat_to_rot(q[0] / n, q[1] / n, q[2] / n, q[3] / n, o + kRot);
+    const T* Il = (const T*)a.inertia + 9 * bi;
+    for (int c = 0; c < 9; ++c) k[kInertia + c] = Il[c];
+    // I^-1 = adj(I) / det(I)
+    const T adj[9] = {Il[4] * Il[8] - Il[5] * Il[7], Il[2] * Il[7] - Il[1] * Il[8],
+                      Il[1] * Il[5] - Il[2] * Il[4], Il[5] * Il[6] - Il[3] * Il[8],
+                      Il[0] * Il[8] - Il[2] * Il[6], Il[2] * Il[3] - Il[0] * Il[5],
+                      Il[3] * Il[7] - Il[4] * Il[6], Il[1] * Il[6] - Il[0] * Il[7],
+                      Il[0] * Il[4] - Il[1] * Il[3]};
+    const T inv_det = T(1) / (Il[0] * adj[0] + Il[1] * adj[3] + Il[2] * adj[6]);
+    for (int c = 0; c < 9; ++c) k[kInvInertia + c] = adj[c] * inv_det;
     const T m = ((const T*)a.mass)[bi];
-    o[kMass] = m;
-    o[kMu] = ((const T*)a.mu)[bi];
-    o[kNeff] = ((const T*)a.obj_data)[kObjDataDim * i];
+    k[kInvMass] = T(1) / m;
+    for (int c = 0; c < 3; ++c) k[kWeight + c] = m * (T)a.gravity[c];
+    k[kMu] = ((const T*)a.mu)[bi];
+    k[kNeff] = ((const T*)a.obj_data)[kObjDataDim * i];
     const T L2 = ((const T*)a.obj_data)[kObjDataDim * i + 1];
-    T i_min = at_most(at_most(o[kInertia], o[kInertia + 4]), o[kInertia + 8]);
-    i_min = at_least(i_min, T(1e-12));
+    T i_min = at_least(at_most(at_most(Il[0], Il[4]), Il[8]), T(1e-12));
     const T m_eff = T(1) / (T(1) / m + L2 / i_min);
     const double omega_max = 0.3 / a.dt_obj;
-    const T k = at_most(m_eff * (T)(omega_max * omega_max), (T)a.k_contact);
-    o[kK] = k;
-    o[kC] = at_most(at_most(T(2) * sqrt(k * m), (T)a.c_contact), T(0.3) * m_eff / dt);
-    o[kImin] = i_min;
-    div = a.has_diverged ? a.diverged[bi] != 0 : false;
+    const T kc = at_most(m_eff * (T)(omega_max * omega_max), (T)a.k_contact);
+    k[kCapK] = kc;
+    k[kCapC] = at_most(at_most(T(2) * sqrt(kc * m), (T)a.c_contact), T(0.3) * m_eff / dt);
+    k[kIMin] = i_min;
   }
+  bool div = false;
+  if (tid < n_obj && a.has_diverged) div = a.diverged[b * n_obj + tid] != 0;
+  block_sync<kOneWarp>();
 
-  // -- load: this thread's slot ---------------------------------------------
+  // -- load: this lane's slot (a padded lane repeats the last slot) -----------
+  const int s = tid < n_slots ? tid : n_slots - 1;
   T geom[kSlotGeomDim];
-  int obj = 0, parent = -1;
+  for (int c = 0; c < kSlotGeomDim; ++c) geom[c] = ((const T*)a.slot_geom)[kSlotGeomDim * s + c];
+  const int obj = a.slot_int[4 * s], parent = a.slot_int[4 * s + 1];
+  const int piece_end = tid < n_slots ? a.slot_piece[3 * s] : tid;
+  const int own_row = tid < n_slots ? a.slot_piece[3 * s + 1] : -1;
+  const int reaction_row = tid < n_slots ? a.slot_piece[3 * s + 2] : -1;
+  {
+    // the vertex about the CoM, in the object's frame
+    const T* off = (const T*)a.com_offset + 3 * (b * n_obj + obj);
+    for (int c = 0; c < 3; ++c) geom[15 + c] -= off[c];
+  }
+  const T* ko = oc + obj * kConstStride;
+  const T cap_k = ko[kCapK], mu = ko[kMu];
+  // prefilter(g) = g / (1 + dt g n_eff w_v): the damping impulse can at most
+  // cancel the relative velocity; w_v = 1/m + |lever|^2 / i_min, and |lever| =
+  // |R vc| = |vc| for the whole launch
+  const T w_v = ko[kInvMass] + dot3(geom + 15, geom + 15) / ko[kIMin];
+  const T c_v = ko[kCapC] / (T(1) + dt * ko[kCapC] * ko[kNeff] * w_v);
+  const T dt_neff_wv = dt * ko[kNeff] * w_v;
   long long anchor_at = 0;
   T anc[2] = {T(0), T(0)};
   bool valid = false;
-  if (tid < n_slots) {
-    for (int c = 0; c < kSlotGeomDim; ++c) geom[c] = ((const T*)a.slot_geom)[kSlotGeomDim * tid + c];
-    obj = a.slot_int[4 * tid];
-    parent = a.slot_int[4 * tid + 1];
-    sparent[tid] = parent;
-    if (a.stiction) {
-      anchor_at = (((long long)b * n_obj + obj) * a.s_max + a.slot_int[4 * tid + 2]) * a.k_max +
-                  a.slot_int[4 * tid + 3];
-      anc[0] = ((const T*)a.anchors)[2 * anchor_at];
-      anc[1] = ((const T*)a.anchors)[2 * anchor_at + 1];
-      valid = a.anchor_valid[anchor_at] != 0;
-    }
+  if (kStiction && tid < n_slots) {
+    anchor_at = (((long long)b * n_obj + obj) * a.s_max + a.slot_int[4 * s + 2]) * a.k_max +
+                a.slot_int[4 * s + 3];
+    anc[0] = ((const T*)a.anchors)[2 * anchor_at];
+    anc[1] = ((const T*)a.anchors)[2 * anchor_at + 1];
+    valid = a.anchor_valid[anchor_at] != 0;
   }
-  __syncthreads();
+  // the object this lane integrates (lanes past the last object repeat it)
+  const int io = tid < n_obj ? tid : n_obj - 1;
+  const int row_first = a.obj_rows[2 * io], row_count = a.obj_rows[2 * io + 1];
+  const T max_force = (T)a.max_force, freeze = (T)a.freeze;
+  const bool reactions = a.has_reactions != 0;
 
-  const T grav[3] = {(T)a.gravity[0], (T)a.gravity[1], (T)a.gravity[2]};
   for (int step = 0; step < a.n_steps; ++step) {
-    T f0[kFrameDim];
-    const T* fsrc = (const T*)a.frames + ((long long)b * a.n_steps + step) * kFrameDim;
-    for (int c = 0; c < kFrameDim; ++c) f0[c] = fsrc[c];
+    // -- the outer step's frames, one per substep, formed together ----------
+    const T* f0 = (const T*)a.frames + ((long long)b * a.n_steps + step) * kFrameDim;
+    for (int tau = tid; tau < a.n_sub; tau += n_threads)
+      substep_frame(f0, tau, a.dt_obj, sf + tau * kRowStride);
+    block_sync<kOneWarp>();
+    PHASE_MARK(kFrames);
 
     for (int tau = 0; tau < a.n_sub; ++tau) {
-      const float d32 = (float)tau * (float)a.dt_obj;
-      const float h32 = (0.5f * d32) * d32;
-      T Re[9], pe[3], ve[3], we[3];
-      substep_frame(f0, (T)d32, (T)h32, Re, pe, ve, we);
+      const T* fr = sf + tau * kRowStride;
+      // -- the input of this lane's integration that the state before the
+      //    substep fixes: the gyroscopic term in the body frame, w_b x I w_b
+      //    with w_b = R^T w, first in the source so that it fills the slot
+      //    chain's waits (the slow paths of the IEEE square roots and
+      //    divisions below cut the code into regions that the compiler does
+      //    not schedule across) -------------------------------------------
+      const T* o = so + io * kRowStride;
+      const T* ki = oc + io * kConstStride;
+      T gyro_b[3];
+      {
+        T w_b[3], Iw_b[3];
+        matTvec3(o + kRot, o + kAng, w_b);
+        matvec3(ki + kInertia, w_b, Iw_b);
+        cross3(w_b, Iw_b, gyro_b);
+      }
+      // -- the slot phase: every lane --------------------------------------------
+      const T* oi = so + obj * kRowStride;
+      const T* op = parent < 0 ? fr : so + parent * kRowStride;  // the parent's pose
+      T n_w[3], p_surf[3], t1[3], t2[3], tmp[3], p_w[3];
+      matvec3(op + kRot, geom + 3, n_w);
+      matvec3(op + kRot, geom + 0, tmp);
+      for (int c = 0; c < 3; ++c) p_surf[c] = op[kPos + c] + tmp[c];
+      matvec3(op + kRot, geom + 6, t1);
+      matvec3(op + kRot, geom + 9, t2);
+      matvec3(oi + kRot, geom + 15, tmp);
+      T rel[3], lever[3], arm_p[3];
+      for (int c = 0; c < 3; ++c) {
+        p_w[c] = oi[kPos + c] + tmp[c];
+        rel[c] = p_w[c] - p_surf[c];
+        lever[c] = p_w[c] - oi[kPos + c];
+        arm_p[c] = p_w[c] - op[kPos + c];
+      }
+      const T delta = -dot3(rel, n_w);
+      const T tc0 = dot3(rel, t1), tc1 = dot3(rel, t2);
+      const bool inside = fabs(tc0) <= geom[12] + T(1e-3) && fabs(tc1) <= geom[13] + T(1e-3);
+      const bool in_contact = delta > T(0) && delta <= geom[14] && inside;
 
-      // -- phase 1: one thread per slot ---------------------------------------
-      if (tid < n_slots) {
-        const T* oi = so + obj * kObjStride;
-        T Ri[9], Rp[9], rp[3], vp[3], wp[3];
-        quat_to_rot(oi + kQ, Ri);
-        if (parent < 0) {
-          for (int c = 0; c < 9; ++c) Rp[c] = Re[c];
-          for (int c = 0; c < 3; ++c) { rp[c] = pe[c]; vp[c] = ve[c]; wp[c] = we[c]; }
-        } else {
-          const T* op = so + parent * kObjStride;
-          quat_to_rot(op + kQ, Rp);
-          for (int c = 0; c < 3; ++c) { rp[c] = op[kR + c]; vp[c] = op[kV + c]; wp[c] = op[kW + c]; }
+      T wl[3], wpl[3], v_rel[3], v_t[3];
+      cross3(oi + kAng, lever, wl);
+      cross3(op + kAng, arm_p, wpl);
+      for (int c = 0; c < 3; ++c) v_rel[c] = oi[kVel + c] + wl[c] - (op[kVel + c] + wpl[c]);
+      const T v_n = dot3(v_rel, n_w);
+      for (int c = 0; c < 3; ++c) v_t[c] = v_rel[c] - v_n * n_w[c];
+      T f_n = at_most(at_least(cap_k * delta - c_v * v_n, T(0)), max_force);
+      if (!in_contact) f_n = T(0);
+
+      T f_c[3];
+      if (kStiction) {
+        const bool stuck = valid && in_contact;
+        const T d0 = tc0 - (stuck ? anc[0] : tc0), d1 = tc1 - (stuck ? anc[1] : tc1);
+        T F_t[3];
+        for (int c = 0; c < 3; ++c) F_t[c] = -(d0 * t1[c] + d1 * t2[c]) * cap_k - c_v * v_t[c];
+        const T F_mag = sqrt(dot3(F_t, F_t));
+        const T scale = at_most(mu * f_n / at_least(F_mag, T(1e-12)), T(1));
+        for (int c = 0; c < 3; ++c) f_c[c] = f_n * n_w[c] + (in_contact ? F_t[c] * scale : T(0));
+        const T d_norm = sqrt(d0 * d0 + d1 * d1);
+        const T d_max = at_least(mu * at_least(delta, T(0)), T(1e-4));
+        const T shrink = at_most(d_max / at_least(d_norm, T(1e-12)), T(1));
+        anc[0] = in_contact ? tc0 - d0 * shrink : tc0;
+        anc[1] = in_contact ? tc1 - d1 * shrink : tc1;
+        valid = in_contact;
+      } else {
+        const T v_t_norm = sqrt(dot3(v_t, v_t)) + (T)a.v_slip;
+        const T g = mu * f_n / v_t_norm;
+        const T gain = g / (T(1) + g * dt_neff_wv);
+        for (int c = 0; c < 3; ++c) f_c[c] = f_n * n_w[c] - gain * v_t[c];
+      }
+      // force, torque about the object, torque of the reaction about the parent
+      T x[9];
+      for (int c = 0; c < 3; ++c) x[c] = f_c[c];
+      cross3(lever, f_c, x + 3);
+      {
+        const T neg[3] = {-f_c[0], -f_c[1], -f_c[2]};
+        cross3(arm_p, neg, x + 6);
+      }
+
+      bool far = false;  // the freeze test, from the state before this substep
+      if (freeze > T(0)) {
+        // displacement in the EE frame
+        T d[3], r_oe[3], e[3];
+        for (int c = 0; c < 3; ++c) d[c] = o[kPos + c] - fr[kPos + c];
+        matTvec3(fr + kRot, d, r_oe);
+        for (int c = 0; c < 3; ++c) e[c] = r_oe[c] - ki[kComNom + c];
+        far = sqrt(dot3(e, e)) > freeze;
+      }
+      PHASE_MARK(kSlots);
+
+      // -- the sums: a segmented suffix scan over each piece -----------------
+      for (int off = 1; off < a.max_piece; off <<= 1) {
+        const bool add = tid + off <= piece_end;
+        for (int c = 0; c < 6; ++c) {
+          const T y = __shfl_down_sync(0xffffffffu, x[c], off);
+          x[c] += add ? y : T(0);
         }
-        T n_w[3], p_surf[3], t1[3], t2[3], vc[3], p_w[3], tmp[3];
-        matvec3(Rp, geom + 3, n_w);
-        matvec3(Rp, geom + 0, tmp);
-        for (int c = 0; c < 3; ++c) p_surf[c] = rp[c] + tmp[c];
-        matvec3(Rp, geom + 6, t1);
-        matvec3(Rp, geom + 9, t2);
-        for (int c = 0; c < 3; ++c) vc[c] = geom[15 + c] - oi[kComOff + c];
-        matvec3(Ri, vc, tmp);
-        T rel[3], lever[3], arm_p[3];
+        if (reactions)
+          for (int c = 6; c < 9; ++c) {
+            const T y = __shfl_down_sync(0xffffffffu, x[c], off);
+            x[c] += add ? y : T(0);
+          }
+      }
+      if (own_row >= 0)
+        for (int c = 0; c < kRowSum; ++c) sr[own_row * kRowSum + c] = x[c];
+      if (reaction_row >= 0) {
+        T* rr = sr + reaction_row * kRowSum;
         for (int c = 0; c < 3; ++c) {
-          p_w[c] = oi[kR + c] + tmp[c];
-          rel[c] = p_w[c] - p_surf[c];
-          lever[c] = p_w[c] - oi[kR + c];
-          arm_p[c] = p_w[c] - rp[c];
-        }
-        const T delta = -dot3(rel, n_w);
-        const T tc0 = dot3(rel, t1), tc1 = dot3(rel, t2);
-        const bool inside = fabs(tc0) <= geom[12] + T(1e-3) && fabs(tc1) <= geom[13] + T(1e-3);
-        const bool in_contact = delta > T(0) && delta <= geom[14] && inside;
-
-        T wl[3], wpl[3], v_t[3];
-        cross3(oi + kW, lever, wl);
-        cross3(wp, arm_p, wpl);
-        T v_rel[3];
-        for (int c = 0; c < 3; ++c) v_rel[c] = oi[kV + c] + wl[c] - (vp[c] + wpl[c]);
-        const T v_n = dot3(v_rel, n_w);
-        for (int c = 0; c < 3; ++c) v_t[c] = v_rel[c] - v_n * n_w[c];
-
-        // prefilter(g) = g / (1 + dt g n_eff w_v): the damping impulse can at
-        // most cancel the relative velocity
-        const T w_v = T(1) / oi[kMass] + dot3(lever, lever) / oi[kImin];
-        const T c_v = oi[kC] / (T(1) + dt * oi[kC] * oi[kNeff] * w_v);
-        T f_n = at_least(oi[kK] * delta - c_v * v_n, T(0));
-        f_n = at_most(f_n, (T)a.max_force);
-        if (!in_contact) f_n = T(0);
-
-        T f_c[3];
-        if (a.stiction) {
-          const bool stuck = valid && in_contact;
-          const T d0 = tc0 - (stuck ? anc[0] : tc0), d1 = tc1 - (stuck ? anc[1] : tc1);
-          T F_t[3];
-          for (int c = 0; c < 3; ++c)
-            F_t[c] = -(d0 * t1[c] + d1 * t2[c]) * oi[kK] - c_v * v_t[c];
-          const T F_mag = sqrt(dot3(F_t, F_t));
-          const T scale = at_most(oi[kMu] * f_n / at_least(F_mag, T(1e-12)), T(1));
-          for (int c = 0; c < 3; ++c) f_c[c] = f_n * n_w[c] + (in_contact ? F_t[c] * scale : T(0));
-          const T d_norm = sqrt(d0 * d0 + d1 * d1);
-          const T d_max = at_least(oi[kMu] * at_least(delta, T(0)), T(1e-4));
-          const T shrink = at_most(d_max / at_least(d_norm, T(1e-12)), T(1));
-          anc[0] = in_contact ? tc0 - d0 * shrink : tc0;
-          anc[1] = in_contact ? tc1 - d1 * shrink : tc1;
-          valid = in_contact;
-        } else {
-          const T v_t_norm = sqrt(dot3(v_t, v_t)) + (T)a.v_slip;
-          const T g = oi[kMu] * f_n / v_t_norm;
-          const T gain = g / (T(1) + dt * g * oi[kNeff] * w_v);
-          for (int c = 0; c < 3; ++c) f_c[c] = f_n * n_w[c] - gain * v_t[c];
-        }
-        T* out = ss + kSlotOut * tid;
-        for (int c = 0; c < 3; ++c) out[c] = f_c[c];
-        cross3(lever, f_c, out + 3);
-        if (parent >= 0) {
-          const T neg[3] = {-f_c[0], -f_c[1], -f_c[2]};
-          T arm[3];
-          for (int c = 0; c < 3; ++c) arm[c] = p_w[c] - so[parent * kObjStride + kR + c];
-          cross3(arm, neg, out + 6);
+          rr[c] = -x[c];
+          rr[3 + c] = x[6 + c];
         }
       }
-      __syncthreads();
+      PHASE_MARK(kReduction);
+      block_sync<kOneWarp>();
+      PHASE_MARK(kBarriers);
 
-      // -- phase 2: one thread per object -------------------------------------
+      // -- the integration: object io on this lane ----------------------------
+      T F[3], Tq[3];
+      for (int c = 0; c < 3; ++c) {
+        F[c] = ki[kWeight + c];
+        Tq[c] = T(0);
+      }
+      for (int j = row_first; j < row_first + row_count; ++j)
+        for (int c = 0; c < 3; ++c) {
+          F[c] += sr[j * kRowSum + c];
+          Tq[c] += sr[j * kRowSum + 3 + c];
+        }
+      // the world solve (R I R^T) w_dot = T - w x (R I R^T w), in the body
+      // frame: w_dot = R I^-1 (R^T T - w_b x I w_b)
+      T r_new[3], v_new[3], w_new[3], q_new[4], rhs[3], a_b[3], w_dot[3];
+      for (int c = 0; c < 3; ++c) v_new[c] = o[kVel + c] + dt * (F[c] * ki[kInvMass]);
+      matTvec3(o + kRot, Tq, rhs);
+      for (int c = 0; c < 3; ++c) rhs[c] -= gyro_b[c];
+      matvec3(ki + kInvInertia, rhs, a_b);
+      matvec3(o + kRot, a_b, w_dot);
+      for (int c = 0; c < 3; ++c) {
+        w_new[c] = o[kAng + c] + dt * w_dot[c];
+        r_new[c] = o[kPos + c] + dt * v_new[c];
+      }
+      {  // q_new = exp(dt w_new / 2) q, normalised
+        const T nw = sqrt(dot3(w_new, w_new));
+        const T half = T(0.5) * (nw * dt);
+        const T inv = T(1) / at_least(nw, T(1e-12));
+        T sh, ch;
+        sincos_pi(half * T(0.318309886183790671537767526745028724), &sh, &ch);
+        const T x0 = w_new[0] * inv * sh, y0 = w_new[1] * inv * sh, z0 = w_new[2] * inv * sh;
+        const T x1 = o[kQuat], y1 = o[kQuat + 1], z1 = o[kQuat + 2], w1 = o[kQuat + 3];
+        q_new[0] = ch * x1 + x0 * w1 + y0 * z1 - z0 * y1;
+        q_new[1] = ch * y1 - x0 * z1 + y0 * w1 + z0 * x1;
+        q_new[2] = ch * z1 + x0 * y1 - y0 * x1 + z0 * w1;
+        q_new[3] = ch * w1 - x0 * x1 - y0 * y1 - z0 * z1;
+        const T n = sqrt(q_new[0] * q_new[0] + q_new[1] * q_new[1] + q_new[2] * q_new[2] +
+                         q_new[3] * q_new[3]);
+        const T inv_n = T(1) / n;
+        for (int c = 0; c < 4; ++c) q_new[c] *= inv_n;
+      }
+      bool hold = false;
+      if (freeze > T(0)) {
+        bool finite = true;  // & and not &&: no branches
+        for (int c = 0; c < 3; ++c)
+          finite = finite & isfinite(r_new[c]) & isfinite(v_new[c]) & isfinite(w_new[c]);
+        for (int c = 0; c < 4; ++c) finite = finite & isfinite(q_new[c]);
+        div = div || !finite;
+        hold = far || !finite;
+      }
+      T R_new[9];
+      unit_quat_to_rot(q_new[0], q_new[1], q_new[2], q_new[3], R_new);
       if (tid < n_obj) {
-        T* o = so + tid * kObjStride;
-        T F[3], Tq[3];
-        for (int c = 0; c < 3; ++c) { F[c] = o[kMass] * grav[c]; Tq[c] = T(0); }
-        const int first = a.obj_int[2 * tid], count = a.obj_int[2 * tid + 1];
-        for (int s = first; s < first + count; ++s)
-          for (int c = 0; c < 3; ++c) { F[c] += ss[kSlotOut * s + c]; Tq[c] += ss[kSlotOut * s + 3 + c]; }
-        for (int s = 0; s < n_slots; ++s)
-          if (sparent[s] == tid)
-            for (int c = 0; c < 3; ++c) { F[c] -= ss[kSlotOut * s + c]; Tq[c] += ss[kSlotOut * s + 6 + c]; }
-
-        T r_new[3], v_new[3], w_new[3], q_new[4];
-        for (int c = 0; c < 3; ++c) v_new[c] = o[kV + c] + dt * F[c] / o[kMass];
-        T R[9], IR[9], Iw[9];  // I_w = R I R^T
-        quat_to_rot(o + kQ, R);
-        for (int i = 0; i < 3; ++i)
-          for (int j = 0; j < 3; ++j)
-            IR[3 * i + j] = o[kInertia + 3 * i] * R[3 * j] + o[kInertia + 3 * i + 1] * R[3 * j + 1] +
-                            o[kInertia + 3 * i + 2] * R[3 * j + 2];
-        for (int i = 0; i < 3; ++i)
-          for (int j = 0; j < 3; ++j)
-            Iw[3 * i + j] = R[3 * i] * IR[j] + R[3 * i + 1] * IR[3 + j] + R[3 * i + 2] * IR[6 + j];
-        T Iww[3], wxIw[3], rhs[3], w_dot[3];
-        matvec3(Iw, o + kW, Iww);
-        cross3(o + kW, Iww, wxIw);
-        for (int c = 0; c < 3; ++c) rhs[c] = Tq[c] - wxIw[c];
-        solve3(Iw, rhs, w_dot);
+        T* ow = so + io * kRowStride;
         for (int c = 0; c < 3; ++c) {
-          w_new[c] = o[kW + c] + dt * w_dot[c];
-          r_new[c] = o[kR + c] + dt * v_new[c];
+          ow[kVel + c] = hold ? T(0) : v_new[c];
+          ow[kAng + c] = hold ? T(0) : w_new[c];
         }
-        {  // q_new = exp(dt w_new / 2) q, normalised
-          const T nw = sqrt(dot3(w_new, w_new));
-          const T half = T(0.5) * (nw * dt);
-          const T inv = T(1) / at_least(nw, T(1e-12));
-          const T sh = sin(half);
-          const T x0 = w_new[0] * inv * sh, y0 = w_new[1] * inv * sh, z0 = w_new[2] * inv * sh;
-          const T w0 = cos(half);
-          const T x1 = o[kQ], y1 = o[kQ + 1], z1 = o[kQ + 2], w1 = o[kQ + 3];
-          q_new[0] = w0 * x1 + x0 * w1 + y0 * z1 - z0 * y1;
-          q_new[1] = w0 * y1 - x0 * z1 + y0 * w1 + z0 * x1;
-          q_new[2] = w0 * z1 + x0 * y1 - y0 * x1 + z0 * w1;
-          q_new[3] = w0 * w1 - x0 * x1 - y0 * y1 - z0 * z1;
-          const T n = sqrt(q_new[0] * q_new[0] + q_new[1] * q_new[1] + q_new[2] * q_new[2] +
-                           q_new[3] * q_new[3]);
-          for (int c = 0; c < 4; ++c) q_new[c] /= n;
+        if (!hold) {
+          for (int c = 0; c < 3; ++c) ow[kPos + c] = r_new[c];
+          for (int c = 0; c < 4; ++c) ow[kQuat + c] = q_new[c];
+          for (int c = 0; c < 9; ++c) ow[kRot + c] = R_new[c];
         }
-        bool hold = false;
-        if (a.freeze > 0) {
-          // displacement in the EE frame, from the state before this substep
-          T d[3], r_oe[3];
-          for (int c = 0; c < 3; ++c) d[c] = o[kR + c] - pe[c];
-          for (int c = 0; c < 3; ++c) r_oe[c] = Re[c] * d[0] + Re[3 + c] * d[1] + Re[6 + c] * d[2];
-          T e[3];
-          for (int c = 0; c < 3; ++c) e[c] = r_oe[c] - o[kComNom + c];
-          const T disp = sqrt(dot3(e, e));
-          bool finite = true;
-          for (int c = 0; c < 3; ++c)
-            finite = finite && isfinite(r_new[c]) && isfinite(v_new[c]) && isfinite(w_new[c]);
-          for (int c = 0; c < 4; ++c) finite = finite && isfinite(q_new[c]);
-          div = div || !finite;
-          hold = disp > (T)a.freeze || !finite;
-        }
-        for (int c = 0; c < 3; ++c) {
-          if (!hold) o[kR + c] = r_new[c];
-          o[kV + c] = hold ? T(0) : v_new[c];
-          o[kW + c] = hold ? T(0) : w_new[c];
-        }
-        if (!hold)
-          for (int c = 0; c < 4; ++c) o[kQ + c] = q_new[c];
       }
-      __syncthreads();
+      PHASE_MARK(kIntegration);
+      block_sync<kOneWarp>();
+      PHASE_MARK(kBarriers);
     }
   }
+  PHASE_CLOCK_END(a.n_steps * a.n_sub);
 
   // -- store -------------------------------------------------------------------
   if (tid < n_obj) {
     const int bi = b * n_obj + tid;
-    const T* o = so + tid * kObjStride;
+    const T* o = so + tid * kRowStride;
     for (int c = 0; c < 3; ++c) {
-      ((T*)a.r_out)[3 * bi + c] = o[kR + c];
-      ((T*)a.v_out)[3 * bi + c] = o[kV + c];
-      ((T*)a.w_out)[3 * bi + c] = o[kW + c];
+      ((T*)a.r_out)[3 * bi + c] = o[kPos + c];
+      ((T*)a.v_out)[3 * bi + c] = o[kVel + c];
+      ((T*)a.w_out)[3 * bi + c] = o[kAng + c];
     }
-    for (int c = 0; c < 4; ++c) ((T*)a.q_out)[4 * bi + c] = o[kQ + c];
+    for (int c = 0; c < 4; ++c) ((T*)a.q_out)[4 * bi + c] = o[kQuat + c];
     if (a.has_diverged) a.diverged_out[bi] = div ? 1 : 0;
   }
-  if (tid < n_slots && a.stiction) {
+  if (kStiction && tid < n_slots) {
     ((T*)a.anchors_out)[2 * anchor_at] = anc[0];
     ((T*)a.anchors_out)[2 * anchor_at + 1] = anc[1];
     a.anchor_valid_out[anchor_at] = valid ? 1 : 0;
@@ -428,12 +556,22 @@ __global__ void __launch_bounds__(kMaxSlots) plant_kernel(const PlantArgs a) {
 
 namespace {
 
-template <typename T>
-int launch(const PlantArgs& a, cudaStream_t stream) {
-  const int threads = ((a.n_slots > a.n_obj ? a.n_slots : a.n_obj) + 31) / 32 * 32;
-  const long long smem = smem_bytes<T>(a.n_obj, a.n_slots);
-  plant_kernel<T><<<a.batch, threads, (size_t)smem, stream>>>(a);
-  return (int)cudaGetLastError();
+using KernelFn = void (*)(const PlantArgs);
+
+// Instance `which`: bit 0 float64, bit 1 the block-wide route, bit 2 the
+// regularized friction model (0: float32, one warp, stiction: the main path).
+KernelFn instance(int which) {
+  switch (which) {
+    case 0: return plant_kernel<float, true, true>;
+    case 1: return plant_kernel<double, true, true>;
+    case 2: return plant_kernel<float, false, true>;
+    case 3: return plant_kernel<double, false, true>;
+    case 4: return plant_kernel<float, true, false>;
+    case 5: return plant_kernel<double, true, false>;
+    case 6: return plant_kernel<float, false, false>;
+    case 7: return plant_kernel<double, false, false>;
+    default: return nullptr;
+  }
 }
 
 }  // namespace
@@ -441,21 +579,23 @@ int launch(const PlantArgs& a, cudaStream_t stream) {
 extern "C" {
 
 // Registers per thread, bytes of local memory per thread and bytes of static
-// shared memory of instance `which` (0 float32, 1 float64), into out[0..2].
-// Returns the CUDA error.
+// shared memory of instance `which` (see instance()), into out[0..2].
+// Returns the CUDA error, or -1 for an unknown instance.
 int plant_instance_attrs(int which, int* out) {
+  const KernelFn fn = instance(which);
+  if (!fn) return -1;
   cudaFuncAttributes attr;
-  cudaError_t e;
-  switch (which) {
-    case 0: e = cudaFuncGetAttributes(&attr, plant_kernel<float>); break;
-    case 1: e = cudaFuncGetAttributes(&attr, plant_kernel<double>); break;
-    default: return -1;
-  }
+  const cudaError_t e = cudaFuncGetAttributes(&attr, fn);
   if (e != cudaSuccess) return (int)e;
   out[0] = attr.numRegs;
   out[1] = (int)attr.localSizeBytes;
   out[2] = (int)attr.sharedSizeBytes;
   return 0;
+}
+
+// Bytes of dynamic shared memory one block takes.
+long long plant_smem_bytes(int n_obj, int n_sub, int n_rows, int elem_bytes) {
+  return smem_elems(n_obj, n_sub, n_rows) * elem_bytes;
 }
 
 // Launches on `stream` and does not synchronise.  elem_bytes 4 (float32) or 8
@@ -466,12 +606,25 @@ int plant_advance(const PlantArgs* args, int elem_bytes, void* stream) {
   if (a.batch <= 0 || a.n_steps < 0 || a.n_sub <= 0) return -1;
   if (a.n_obj < 1 || a.n_obj > kMaxObjects || a.n_slots < a.n_obj || a.n_slots > kMaxSlots)
     return -1;
+  if (!a.slot_piece || !a.obj_rows || a.n_rows < 0 || a.max_piece < 1 || a.max_piece > kWarp)
+    return -1;
   if (a.stiction && (!a.anchors || !a.anchor_valid || !a.anchors_out || !a.anchor_valid_out))
     return -1;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (elem_bytes == 4) return launch<float>(a, s);
-  if (elem_bytes == 8) return launch<double>(a, s);
-  return -1;
+  if (elem_bytes != 4 && elem_bytes != 8) return -1;
+  const int threads = (a.n_slots + kWarp - 1) / kWarp * kWarp;
+  const bool one_warp = threads == kWarp;
+  const KernelFn fn =
+      instance((elem_bytes == 8 ? 1 : 0) | (one_warp ? 0 : 2) | (a.stiction ? 0 : 4));
+  const long long smem = plant_smem_bytes(a.n_obj, a.n_sub, a.n_rows, elem_bytes);
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  void* params[] = {const_cast<PlantArgs*>(&a)};
+  const cudaError_t e = cudaLaunchKernel((const void*)fn, dim3(a.batch), dim3(threads), params,
+                                         (size_t)smem, (cudaStream_t)stream);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 }  // extern "C"

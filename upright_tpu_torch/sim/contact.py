@@ -46,6 +46,7 @@ from upright_tpu_torch.core.math import cross, matvec, quat_integrate, quat_to_r
 # Kernel limits: one block holds one instance, one thread per slot.
 MAX_SLOTS = 256
 MAX_OBJECTS = 32
+WARP = 32
 
 # Columns of the tables
 FRAME_DIM = 24  # R (9, row-major), p, v, w, a, al of the EE at one outer step
@@ -73,9 +74,52 @@ class PlantConstants:
     stiction: bool
 
 
+def piece_tables(slot_int, n_obj):
+    """The kernel's sums, planned on the host: (slot_piece, obj_rows,
+    n_rows, max_piece) for a slot table (n_slots, 4) in slot order.
+
+    A *piece* is a run of slots of one object and one surface inside one
+    warp of 32 (one parent, so one reaction).  The kernel sums each piece
+    across its lanes and its first lane writes the sum (force, torque) to a
+    *row* of the object and, when the surface is an object's, the reaction
+    (minus the force, the torque about the parent) to a row of the parent.
+    Each object's rows are one contiguous range, so its integrating lane
+    adds ``obj_rows[i, 1]`` rows from ``obj_rows[i, 0]``.
+
+    slot_piece (n_slots, 3) int32: last slot of the slot's piece; for a
+    piece's first slot its own row and its reaction row (-1: on the EE), -1
+    and -1 for the others.  obj_rows (n_obj, 2) int32: first row, count.
+    """
+    slot_int = np.asarray(slot_int, dtype=np.int64).reshape(-1, 4)
+    n = len(slot_int)
+    key = [(int(o), int(sf), int(p)) for o, p, sf, _v in slot_int]
+    heads = [s for s in range(n) if s == 0 or s % WARP == 0 or key[s] != key[s - 1]]
+    slot_piece = np.full((n, 3), -1, dtype=np.int32)
+    for h, nxt in zip(heads, heads[1:] + [n]):
+        slot_piece[h:nxt, 0] = nxt - 1
+    rows = [[] for _ in range(n_obj)]  # per object: (head, column of slot_piece)
+    for h in heads:
+        rows[key[h][0]].append((h, 1))
+    for h in heads:
+        if key[h][2] >= 0:
+            rows[key[h][2]].append((h, 2))
+    obj_rows = np.zeros((n_obj, 2), dtype=np.int32)
+    n_rows = 0
+    for i, entries in enumerate(rows):
+        obj_rows[i] = (n_rows, len(entries))
+        for h, col in entries:
+            slot_piece[h, col] = n_rows
+            n_rows += 1
+    max_piece = max((nxt - h for h, nxt in zip(heads, heads[1:] + [n])), default=1)
+    return slot_piece, obj_rows, n_rows, max_piece
+
+
 @dataclasses.dataclass(frozen=True)
 class ContactTables:
-    """Contact slots and per-object data of one arrangement, on one device."""
+    """Contact slots and per-object data of one arrangement, on one device.
+
+    The piece tables (see ``piece_tables``) are made from ``slot_int`` when
+    they are not given."""
 
     n_obj: int
     s_max: int
@@ -84,6 +128,25 @@ class ContactTables:
     slot_geom: torch.Tensor  # (n_slots, SLOT_GEOM_DIM)
     obj_int: torch.Tensor  # (n_obj, 2) int32: first slot, slot count
     obj_data: torch.Tensor  # (n_obj, OBJ_DATA_DIM)
+    slot_piece: torch.Tensor = None  # (n_slots, 3) int32
+    obj_rows: torch.Tensor = None  # (n_obj, 2) int32
+    n_rows: int = 0
+    max_piece: int = 1
+    has_reactions: bool = False  # some slot rests on another object
+
+    def __post_init__(self):
+        # made on the host, once: a launch reads nothing back from the card
+        if self.slot_piece is None:
+            slot_int = self.slot_int.cpu().numpy()
+            slot_piece, obj_rows, n_rows, max_piece = piece_tables(slot_int, self.n_obj)
+            dev = self.slot_int.device
+            for name, value in (
+                ("slot_piece", torch.as_tensor(slot_piece, device=dev)),
+                ("obj_rows", torch.as_tensor(obj_rows, device=dev)),
+                ("n_rows", n_rows), ("max_piece", max_piece),
+                ("has_reactions", bool((slot_int[:, 1] >= 0).any())),
+            ):
+                object.__setattr__(self, name, value)
 
     @property
     def n_slots(self):
@@ -125,6 +188,7 @@ class ContactTables:
         return dataclasses.replace(
             self,
             slot_int=self.slot_int.to(device=device), obj_int=self.obj_int.to(device=device),
+            slot_piece=self.slot_piece.to(device=device), obj_rows=self.obj_rows.to(device=device),
             slot_geom=self.slot_geom.to(device=device, dtype=dtype),
             obj_data=self.obj_data.to(device=device, dtype=dtype),
         )
@@ -341,10 +405,15 @@ class _PlantArgs(ctypes.Structure):
         + [(n, ctypes.c_int) for n in (
             "batch", "n_steps", "n_sub", "n_obj", "n_slots", "s_max", "k_max",
             "stiction", "has_diverged")]
+        + [("slot_piece", ctypes.c_void_p), ("obj_rows", ctypes.c_void_p)]
+        + [(n, ctypes.c_int) for n in ("n_rows", "max_piece", "has_reactions")]
     )
 
 
-INSTANCES = ("float32", "float64")
+# The kernel's instantiations, in the order of plant.cu's instance(): one warp
+# (at most 32 slots) or block-wide, stiction or regularized friction
+INSTANCES = tuple(f"{t}{route}{friction}" for friction in ("", " regularized")
+                  for route in ("", " block-wide") for t in ("float32", "float64"))
 
 _lib = None
 
@@ -357,6 +426,8 @@ def _library():
         lib.plant_advance.restype = ctypes.c_int
         lib.plant_instance_attrs.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
         lib.plant_instance_attrs.restype = ctypes.c_int
+        lib.plant_smem_bytes.argtypes = [ctypes.c_int] * 4
+        lib.plant_smem_bytes.restype = ctypes.c_longlong
         _lib = lib
     return _lib
 
@@ -417,7 +488,8 @@ def _advance_objects_cuda(tables, consts, frames, objects, params):
     for name, t in masks.items():
         if t.device != frames.device:
             raise ValueError(f"{name} is on {t.device}; every input must be on {frames.device}")
-    ints = {"slot_int": tables.slot_int, "obj_int": tables.obj_int}
+    ints = {"slot_int": tables.slot_int, "obj_int": tables.obj_int,
+            "slot_piece": tables.slot_piece, "obj_rows": tables.obj_rows}
     for name, t in ints.items():
         if t.device != frames.device or t.dtype != torch.int32:
             raise ValueError(f"{name} must be int32 on {frames.device}")
@@ -449,6 +521,9 @@ def _advance_objects_cuda(tables, consts, frames, objects, params):
         dt_obj=consts.dt_obj, batch=B, n_steps=n_steps, n_sub=consts.n_sub, n_obj=n_obj,
         n_slots=n_slots, s_max=tables.s_max, k_max=tables.k_max,
         stiction=int(consts.stiction), has_diverged=int("diverged" in masks),
+        slot_piece=ptr(ints, "slot_piece"), obj_rows=ptr(ints, "obj_rows"),
+        n_rows=tables.n_rows, max_piece=tables.max_piece,
+        has_reactions=int(tables.has_reactions),
     )
     lib = _library()
     with torch.cuda.device(frames.device):
@@ -479,11 +554,11 @@ def advance_objects(tables: ContactTables, consts: PlantConstants, frames, objec
     return advance_objects_plain(tables, consts, frames, objects, params)
 
 
-def smem_bytes(n_obj, n_slots, dtype):
-    """Bytes of dynamic shared memory one block of the kernel takes (as
-    csrc/plant.cu's smem_bytes): 34 words per object, 9 per slot, and one
-    int per slot."""
-    return (34 * n_obj + 9 * n_slots) * _ELEM_BYTES[dtype] + 4 * n_slots
+def smem_bytes(tables, n_sub, dtype):
+    """Bytes of dynamic shared memory one block of the kernel takes: the
+    objects' state and constants, the outer step's frames and the pieces'
+    sums (csrc/plant.cu plant_smem_bytes)."""
+    return _library().plant_smem_bytes(tables.n_obj, n_sub, tables.n_rows, _ELEM_BYTES[dtype])
 
 
 def plant_work(tables, consts, B, n_steps, elem_bytes):

@@ -9,9 +9,11 @@
 // order and are converted to the instance's type; slot_int and obj_int are raw
 // int32, anchor_valid and diverged raw bytes.  The results are written as
 // r_out, q_out, v_out, w_out, anchors_out (float64) and anchor_valid_out,
-// diverged_out (bytes).  TYPE is f (float32) or d (float64).  plant.cu is
-// csrc/plant.cu, copied beside this file so that its include finds the
-// stand-in here.
+// diverged_out (bytes).  The piece tables are read as slot_piece and obj_rows
+// (raw int32), and DIR/meta ends with n_rows max_piece has_reactions.  TYPE is
+// f (float32) or d (float64).  The block takes the route plant_advance takes:
+// one warp for at most 32 slots, block-wide beyond.  plant.cu is csrc/plant.cu,
+// copied beside this file so that its include finds the stand-in here.
 
 #include <cuda_runtime.h>
 
@@ -69,13 +71,21 @@ struct Thread {
   int block, thread;
 };
 
-template <typename T>
+template <typename T, bool kOneWarp, bool kStiction>
 void* cuda_thread(void* p) {
   const auto* t = static_cast<const Thread*>(p);
   threadIdx = {t->thread, 0, 0};
   blockIdx = {t->block, 0, 0};
-  plant_kernel<T>(t->args);
+  plant_kernel<T, kOneWarp, kStiction>(t->args);
   return nullptr;
+}
+
+using ThreadFn = void* (*)(void*);
+
+template <typename T>
+ThreadFn route(bool one_warp, bool stiction) {
+  if (one_warp) return stiction ? cuda_thread<T, true, true> : cuda_thread<T, true, false>;
+  return stiction ? cuda_thread<T, false, true> : cuda_thread<T, false, false>;
 }
 
 template <typename T>
@@ -87,7 +97,8 @@ int run(const std::string& dir) {
              &a.n_slots, &a.s_max, &a.k_max, &a.stiction, &a.has_diverged) != 9 ||
       fscanf(meta, "%lf %lf %lf %lf %lf %lf %lf %lf %lf", &a.gravity[0], &a.gravity[1],
              &a.gravity[2], &a.k_contact, &a.c_contact, &a.v_slip, &a.max_force, &a.freeze,
-             &a.dt_obj) != 9) {
+             &a.dt_obj) != 9 ||
+      fscanf(meta, "%d %d %d", &a.n_rows, &a.max_piece, &a.has_reactions) != 3) {
     fprintf(stderr, "cannot read %s/meta\n", dir.c_str());
     return 2;
   }
@@ -99,6 +110,8 @@ int run(const std::string& dir) {
   const auto obj_data = read_floats<T>(dir + "/obj_data", n * kObjDataDim);
   const auto slot_int = read_raw<int>(dir + "/slot_int", S * 4);
   const auto obj_int = read_raw<int>(dir + "/obj_int", n * 2);
+  const auto slot_piece = read_raw<int>(dir + "/slot_piece", S * 3);
+  const auto obj_rows = read_raw<int>(dir + "/obj_rows", n * 2);
   const auto mass = read_floats<T>(dir + "/mass", B * n);
   const auto inertia = read_floats<T>(dir + "/inertia", B * n * 9);
   const auto mu = read_floats<T>(dir + "/mu", B * n);
@@ -124,6 +137,8 @@ int run(const std::string& dir) {
   a.slot_int = slot_int.data();
   a.obj_data = obj_data.data();
   a.obj_int = obj_int.data();
+  a.slot_piece = slot_piece.data();
+  a.obj_rows = obj_rows.data();
   a.mass = mass.data();
   a.inertia = inertia.data();
   a.mu = mu.data();
@@ -143,12 +158,15 @@ int run(const std::string& dir) {
   a.anchor_valid_out = valid_out.data();
   a.diverged_out = diverged_out.data();
 
-  const int threads = ((a.n_slots > a.n_obj ? a.n_slots : a.n_obj) + 31) / 32 * 32;
-  if (threads > kMaxSlots || smem_bytes<T>(a.n_obj, a.n_slots) > (long long)kSmemBytes) {
+  const int threads = (a.n_slots + kWarp - 1) / kWarp * kWarp;
+  if (a.n_slots < a.n_obj || threads > kMaxSlots || a.max_piece < 1 || a.max_piece > kWarp ||
+      smem_elems(a.n_obj, a.n_sub, a.n_rows) * (long long)sizeof(T) > (long long)kSmemBytes) {
     fprintf(stderr, "the shape exceeds what the kernel takes\n");
     return 3;
   }
+  const ThreadFn fn = route<T>(threads == kWarp, a.stiction != 0);
   pthread_barrier_init(&g_block_barrier, nullptr, threads);
+  for (int w = 0; w < threads / kWarp; ++w) pthread_barrier_init(&g_warp_barrier[w], nullptr, kWarp);
   for (int b = 0; b < a.batch; ++b) {
     // all-ones bytes are NaNs: shared memory read before it is written shows
     memset(smem_raw, 0xff, sizeof(smem_raw));
@@ -156,7 +174,7 @@ int run(const std::string& dir) {
     std::vector<pthread_t> handles(threads);
     for (int t = 0; t < threads; ++t) {
       args[t] = {a, b, t};
-      if (pthread_create(&handles[t], nullptr, cuda_thread<T>, &args[t]) != 0) {
+      if (pthread_create(&handles[t], nullptr, fn, &args[t]) != 0) {
         fprintf(stderr, "cannot start thread %d\n", t);
         exit(1);
       }

@@ -1,11 +1,13 @@
 """Run the plant CUDA kernel's device code on the CPU, for its logic.
 
-``csrc/plant.cu`` is plain C++ apart from ``threadIdx``, ``blockIdx`` and
-``__syncthreads``.  The stand-in headers in ``tools/emulate/`` define those
-for a host compiler (one pthread per CUDA thread, a pthread barrier per
-block), and ``plant_harness.cpp`` runs either instantiation of the kernel
-block by block on arrays read from files, so its indexing, the placement of
-its barriers and its arithmetic can be held against the plain version
+``csrc/plant.cu`` is plain C++ apart from ``threadIdx``, ``blockIdx``, the
+barriers (``__syncthreads``, ``__syncwarp``), ``__shfl_down_sync`` and
+``sincospi``.  The stand-in headers in ``tools/emulate/`` define those for a
+host compiler (one pthread per CUDA thread, a pthread barrier per block and
+per warp), and ``plant_harness.cpp`` runs the kernel block by block on arrays
+read from files, on the route the launcher takes (one warp, or block-wide
+beyond 32 slots) in either type, so its indexing, the placement of its
+barriers and its arithmetic can be held against the plain version
 (``sim/contact.py`` ``advance_objects_plain``) without a card.  Shared memory
 starts as NaN patterns, so a read before a write shows.  What it cannot show:
 that ``nvcc`` accepts the source, races between real warps, and any time.
@@ -59,7 +61,9 @@ def run(binary, tables, consts, frames, objects, params, precision="d", timeout=
             tables.k_max, int(consts.stiction), int(has_div)]
     vals = [*consts.gravity, consts.k_contact, consts.c_contact, consts.v_slip,
             consts.max_contact_force, consts.divergence_freeze, consts.dt_obj]
-    (data / "meta").write_text(" ".join(map(str, meta)) + "\n" + " ".join(map(repr, vals)) + "\n")
+    pieces = [tables.n_rows, tables.max_piece, int(tables.has_reactions)]
+    (data / "meta").write_text(" ".join(map(str, meta)) + "\n" + " ".join(map(repr, vals)) + "\n"
+                               + " ".join(map(str, pieces)) + "\n")
 
     def put(name, t, dtype=np.float64):
         np.ascontiguousarray(t.detach().cpu().numpy(), dtype=dtype).tofile(data / name)
@@ -70,6 +74,8 @@ def run(binary, tables, consts, frames, objects, params, precision="d", timeout=
         put(name, t)
     put("slot_int", tables.slot_int, np.int32)
     put("obj_int", tables.obj_int, np.int32)
+    put("slot_piece", tables.slot_piece, np.int32)
+    put("obj_rows", tables.obj_rows, np.int32)
     if consts.stiction:
         put("anchors", objects.anchors)
         put("anchor_valid", objects.anchor_valid, np.uint8)
