@@ -35,14 +35,27 @@ holds every hand-written kernel against its plain PyTorch version:
      UprightSimulation) against the device loop from the same start;
   9. P1's times (thing_demo at batch 1 and 512, box_arch and blue_cups at
      batch 1) beside its bound and its plain version's,
-     and the closed loop's host time per tick, replan and plant apart; then
-     one JSON line describing each kernel (time, bound, launches), the card's
-     name and power limit, and the final JSON line.
+     and the closed loop's host time per tick, replan and plant apart;
+ 10. the obstacle course, ral23/static_obstacles/full_bottle_point1.yaml
+     (frictional cones, 36 collision rows; nx 27, nu 21): batch 512, a
+     12-iteration cold solve then warm re-solves (solves/s, K1 launches per
+     iteration, eq_viol, the smallest collision row), and the batch-1 replan;
+ 11. K1 on the stage data the solver hands it at this slice's widths (27/21,
+     27/9, 36/13, 27/33 and 27/93, each from a cold solve of its config):
+     float64 kernel and float32 kernel against the float64 plain version,
+     ms per launch and of one eager call, bound, the torch.linalg loop;
+     float64 at 27/93 must be refused (shared memory);
+ 12. full_bottle_point1 in the closed loop on the device loop: a 12-iteration
+     cold solve, 100 ticks at 100 Hz, the bottle within 0.03 m and the last
+     plan's collision rows above -0.05; host ms per tick, replan and plant
+     apart; then one JSON line describing each kernel (time, bound,
+     launches), the card's name and power limit, and the final JSON line.
 
 With ``--breakdown`` it also times the phases of one solve (linearization,
 Riccati kernel, line search) between synchronisations and traces three solves
-with torch.profiler, at batch 512 and batch 1: the numbers of PERF.md's
-"where the time goes".
+with torch.profiler, and times the stage derivatives in each Jacobian mode
+(wide, blocked, rev), on thing_demo and full_bottle_point1 at batch 512 and
+batch 1: the numbers of PERF.md's "where the time goes".
 
 It needs a CUDA device and the repository around it: it exits non-zero and
 prints no result without either.  Any failed check raises, so the exit code
@@ -52,6 +65,7 @@ is non-zero and the final line is never printed.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -144,7 +158,12 @@ def main():
         plant_for,
         tick_inputs,
     )
-    from upright_tpu_torch.tools.stage_data import fallback_batch, random_batch, stage_data
+    from upright_tpu_torch.tools.stage_data import (
+        fallback_batch,
+        random_batch,
+        solver_stage_data,
+        stage_data,
+    )
 
     dev = torch.device("cuda")
     results = {}
@@ -517,7 +536,8 @@ def main():
 
     def riccati_library(A, B, d, grads, hess, gf, Hf):
         """The same recursion on torch.linalg's batched Cholesky (a yardstick
-        only: unclamped pivots, and nothing in the port calls it)."""
+        only: unclamped pivots, no check of the factorisation, and nothing in
+        the port calls it)."""
         nx = d.shape[-1]
         Z = torch.cat([A, B], dim=-1)
         eye_u = torch.eye(B.shape[-1], dtype=d.dtype, device=d.device)
@@ -527,7 +547,7 @@ def main():
             Q = hess[:, k] + Z.T @ (P @ Z)
             q = grads[:, k] + Pd_p @ Z
             Qux = Q[:, nx:, :nx]
-            L = torch.linalg.cholesky(Q[:, nx:, nx:] + reg * eye_u)
+            L, _info = torch.linalg.cholesky_ex(Q[:, nx:, nx:] + reg * eye_u)
             sol_ = -torch.cholesky_solve(torch.cat([Qux, q[:, nx:, None]], dim=-1), L)
             K_k, kff_k = sol_[..., :nx], sol_[..., nx]
             P = Q[:, :nx, :nx] + Qux.transpose(-1, -2) @ K_k
@@ -568,14 +588,14 @@ def main():
     plant_inputs, plant_sims, plant_readings = {}, {}, []
     for label, (demo, arrangement, friction), B, diverge in plant_cases:
         sim_cpu = plant_for(demo, arrangement, friction)
-        frames, objects, params = tick_inputs(sim_cpu, B, seed=B, diverge=diverge)
+        frames, objects, plant_params = tick_inputs(sim_cpu, B, seed=B, diverge=diverge)
         tables64 = sim_cpu.tables.to(device=dev)
         tables32 = tables64.to(dtype=torch.float32)
         consts = sim_cpu.contact
 
         def on_card(dtype):
             return (frames.to(dev, dtype), objects_to(objects, dev, dtype),
-                    {k: v.to(dev, dtype) for k, v in params.items()})
+                    {k: v.to(dev, dtype) for k, v in plant_params.items()})
 
         ref = contact.advance_objects_plain(tables64, consts, *on_card(torch.float64))
         witness, control = float32_witness(tables64, consts, *on_card(torch.float64))
@@ -600,7 +620,7 @@ def main():
         results[f"plant_err_{label}"] = {"float64": err64, "float32_vs_witness": err32,
                                          "control_vs_witness": err_ctl,
                                          "float32_vs_float64": off64}
-        plant_inputs[label] = (frames, objects, params)
+        plant_inputs[label] = (frames, objects, plant_params)
         plant_sims[label] = sim_cpu
     # every reading is printed before the first check
     for label, ref, out32, diverge, err64, same64, err32, err_ctl in plant_readings:
@@ -764,9 +784,254 @@ def main():
     results.update(plant_times=plant_times, plant_plain_ms=plant_plain_ms, loop_tick_ms=tick_ms,
                    loop_plant_ms=plant_step_ms, loop_replan_ms=tick_ms - plant_step_ms)
 
+    # -- 10. the obstacle course: full_bottle_point1 --------------------------------
+    FB_PATH = "ral23/static_obstacles/full_bottle_point1.yaml"
+    log(f"== 10. batched solve and steady replan: {FB_PATH}, N = {HORIZON}, batch {BATCH}")
+    fb_config = cfg.load_config(cfg.resolve_package_path({"package": "configs", "path": FB_PATH}))
+    fb = build_problem(fb_config)  # device="cuda", float32: the defaults
+    fb_ocp = fb.ocp
+    check((fb_ocp.N, fb_ocp.nx, fb_ocp.nu, fb_ocp.n_eq, fb_ocp.n_ineq, fb_ocp.n_feq)
+          == (HORIZON, 27, 21, 6, 152, 21),
+          "full_bottle_point1 at full width: nx 27, nu 21 (4 frictional contacts), n_eq 6, "
+          "152 inequality rows (cones 20, state 54, input 42, collisions 36)")
+    groups_at, off = {}, 0
+    for name, n_rows in fb.ineq_groups:
+        groups_at[name] = slice(off, off + n_rows)
+        off += n_rows
+    coll = groups_at["collision_pair_distances"]
+
+    def min_collision_row(problem, X, U, t):
+        p = broadcast_params(problem.stage_params(t), X.shape[0])["stage"]
+        return float(problem.ocp.ineq(X[:, :-1], U, p)[..., coll].min())
+
+    fb_x0s = torch.as_tensor(
+        fb.x0.cpu().numpy()[None, :] + 0.01 * np.random.default_rng(0).standard_normal(
+            (BATCH, fb_ocp.nx)), dtype=torch.float32, device=dev)
+    fb_params = broadcast_params(fb.stage_params(0.0), BATCH)
+    # a cold solve of 12 iterations with the controller's line-search ladder
+    # (from the cold start neither step of (1.0, 0.5) is taken), then the
+    # warm re-solves of phase 4's configuration
+    fb_cold_cfg = ALConfig(iterations=12, rho_eq=10.0, rho_ineq=10.0)
+    fb_solve = batch_solve_fn(fb_ocp, al_cfg)
+    riccati.launch_count = 0
+    t0 = time.perf_counter()
+    fb_sol = solve(fb_ocp, fb_cold_cfg, fb_params, fb_x0s, batch_warm_starts(fb_ocp, fb_x0s))
+    torch.cuda.synchronize()
+    fb_cold_s = time.perf_counter() - t0
+    for _ in range(WARM_RESOLVES):
+        fb_sol = fb_solve(fb_params, fb_x0s, fb_sol.state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TIMED_RESOLVES):
+        fb_prev_state = fb_sol.state
+        fb_sol = fb_solve(fb_params, fb_x0s, fb_sol.state)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches_fb = riccati.launch_count
+    fb_solves_per_s = BATCH * TIMED_RESOLVES / elapsed
+    fb_calls = 1 + WARM_RESOLVES + TIMED_RESOLVES
+    fb_iterations = fb_cold_cfg.iterations + (WARM_RESOLVES + TIMED_RESOLVES) * al_cfg.iterations
+    log(f"  cold solve (12 iterations, batch {BATCH}) {fb_cold_s:.2f} s; {TIMED_RESOLVES} warm "
+        f"re-solves: {elapsed * 1e3 / TIMED_RESOLVES:.2f} ms per call, {fb_solves_per_s:.1f} "
+        f"solves/s (thing_demo in phase 4: {solves_per_s:.1f})")
+    check(launches_fb == fb_iterations,
+          f"K1 was launched once per SQP iteration: {launches_fb} launches in {fb_calls} calls "
+          f"of {fb_iterations} iterations ({launches_fb / fb_iterations:.0f} per iteration, "
+          f"{al_cfg.iterations} per warm solve)")
+    for name, t in (("X", fb_sol.state.X), ("U", fb_sol.state.U), ("mu", fb_sol.state.mu),
+                    ("K", fb_sol.K), ("cost", fb_sol.cost)):
+        check(bool(torch.isfinite(t).all()), f"full_bottle {name} finite on the card")
+    fb_eq = float(fb_sol.eq_viol.max())
+    fb_coll = min_collision_row(fb, fb_sol.state.X, fb_sol.state.U, 0.0)
+    log(f"  after the warm solves: eq_viol max {fb_eq:.4f}, median "
+        f"{float(fb_sol.eq_viol.median()):.4f}; ineq_viol max {float(fb_sol.ineq_viol.max()):.2e};"
+        f" smallest collision row of the solutions {fb_coll:.4f} m")
+    # eq_viol: 12 cold iterations leave this problem short of the 150 its
+    # config asks for (0.42 at batch 8 in float32 on the CPU, the same code);
+    # 1.0 catches a diverging solve
+    FB_EQ_VIOL_BOUND = 1.0
+    check(fb_eq < FB_EQ_VIOL_BOUND,
+          f"full_bottle eq_viol after the warm solves under {FB_EQ_VIOL_BOUND}")
+    check(fb_coll > -0.05, "full_bottle: the planned spheres stay clear of the obstacles "
+          "(smallest collision row above -0.05)")
+    results.update(fb_solves_per_s=fb_solves_per_s, fb_batched_call_ms=elapsed * 1e3 / TIMED_RESOLVES,
+                   fb_cold_solve_s=fb_cold_s, fb_eq_viol_max=fb_eq, fb_min_collision_row=fb_coll,
+                   fb_launches_per_iteration=launches_fb / fb_iterations)
+
+    # the steady replan, as phase 5
+    fb_params1 = broadcast_params(fb.stage_params(0.0), 1)
+    fb_state = SolverState(**{f: getattr(fb_sol.state, f)[:1].clone()
+                              for f in ("X", "U", "lam", "mu", "lam_f")})
+    fb_obs = torch.as_tensor(
+        fb_state.X[0, 0].cpu().numpy()[None, :]
+        + 1e-3 * rng.standard_normal((REPLAN_TICKS, fb_ocp.nx)), dtype=torch.float32, device=dev)
+    fb_nq = fb.dims.robot_q
+    fb_u_lb, fb_u_ub = fb_ocp.u_lb[:fb_nq].cpu(), fb_ocp.u_ub[:fb_nq].cpu()
+    riccati.launch_count = 0
+    fb_tick_ms = []
+    for i in range(REPLAN_TICKS):
+        x = fb_obs[i : i + 1]
+        t0 = time.perf_counter()
+        warm = fb.heal_warm_start(fb.shift_warm_start(fb_state, 0.0), x)
+        s = solve(fb_ocp, al_cfg, fb_params1, x, warm)
+        u = s.state.U[:, 0] + (s.K[:, 0] @ (x - s.state.X[:, 0]).unsqueeze(-1)).squeeze(-1)
+        u_host = u.cpu()
+        fb_tick_ms.append((time.perf_counter() - t0) * 1e3)
+        fb_state = s.state
+        if not bool(torch.isfinite(u_host).all()):
+            raise AssertionError(f"full_bottle replan tick {i}: non-finite input")
+        if not bool(((u_host[0, :fb_nq] >= fb_u_lb) & (u_host[0, :fb_nq] <= fb_u_ub)).all()):
+            raise AssertionError(f"full_bottle replan tick {i}: robot input outside its limits")
+    launches_fb_replan = riccati.launch_count
+    fb_replan_ms = statistics.median(fb_tick_ms[REPLAN_WARMUP:])
+    log(f"  {REPLAN_TICKS} replan ticks: median {fb_replan_ms:.2f} ms per replan (max "
+        f"{max(fb_tick_ms[REPLAN_WARMUP:]):.2f}; thing_demo in phase 5: {replan_ms:.2f})")
+    check(launches_fb_replan == REPLAN_TICKS * al_cfg.iterations,
+          f"K1 was launched once per replan ({launches_fb_replan})")
+    results.update(fb_replan_ms=fb_replan_ms)
+
+    # -- 11. K1 on the solver's own stage data ----------------------------------------
+    log("== 11. K1 against its plain version on the stage data the solver hands it")
+    # (label, config, batch): each width's stage data is the second iteration
+    # of a cold solve (tools/stage_data.py solver_stage_data)
+    widths = [
+        ("27x21", FB_PATH, BATCH),
+        ("27x9", "ral23/static_obstacles/aligned_bottle_point1.yaml", 64),
+        ("36x13", "ral23/sudden_obstacle/sudden_t1.0.yaml", 64),
+        ("27x33", "ral23/freespace/full_dice_point1.yaml", 64),
+        ("27x93", "ral23/static_obstacles/full_cups_point2.yaml", 64),
+    ]
+    rt_attrs = attrs["float32 runtime-sized"]
+    solver_widths, width_readings = {}, []
+    for label, path, B in widths:
+        data = solver_stage_data(path, B)
+        nx_, nu_ = data[2].shape[-1], data[1].shape[-1]
+        check(f"{nx_}x{nu_}" == label, f"{path}: the solver hands K1 nx {nx_}, nu {nu_}")
+        f64 = tuple(t.double() for t in data)
+        K_ref, kff_ref = riccati.riccati_backward_plain(*f64, reg=reg)
+        K_w, kff_w = riccati.riccati_backward_plain(*data, reg=reg)  # the plain version in float32
+        K32, kff32 = riccati.riccati_backward(*data, reg=reg)
+        torch.cuda.synchronize()
+        scale = max(1.0, float(K_ref.abs().max()))
+
+        def err(K, kff):
+            return max(float((K.double() - K_ref).abs().max()),
+                       float((kff.double() - kff_ref).abs().max())) / scale
+
+        reading = {"float32": err(K32, kff32), "plain_float32": err(K_w, kff_w),
+                   "abs_K_max": scale}
+        fits64 = riccati.smem_bytes(nx_, nu_, torch.float64, True) <= riccati.MAX_SMEM_BYTES
+        if fits64:
+            K64, kff64 = riccati.riccati_backward(*f64, reg=reg)
+            torch.cuda.synchronize()
+            reading["float64"] = err(K64, kff64)
+        else:
+            try:
+                riccati.riccati_backward(*f64, reg=reg)
+            except ValueError as e:
+                reading["float64_refused"] = str(e)
+            else:
+                raise AssertionError(f"{label}: float64 took {riccati.smem_bytes(nx_, nu_, torch.float64, True)} "
+                                     "bytes of shared memory without refusing")
+        invariant = data[0].ndim == 2
+        nbytes, flops = riccati_work(B, HORIZON, nx_, nu_, invariant)
+        t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_FP32_FLOPS * 1e3
+        call = lambda: riccati.riccati_backward(*data, reg=reg)  # noqa: E731
+        timing = {
+            "ms": cuda_median_ms(call, reps=20), "ms_per_launch": cuda_launch_ms(call, reps=20),
+            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops,
+            "library_ms": cuda_median_ms(lambda: riccati_library(*data), reps=5, warmup=1),
+            "plain_ms": cuda_median_ms(lambda: riccati.riccati_backward_plain(*data, reg=reg),
+                                       reps=1, warmup=0),
+            "smem_bytes": riccati.smem_bytes(nx_, nu_, torch.float32, True),
+            "registers": rt_attrs["registers"], "local_bytes": rt_attrs["local_bytes"],
+            "batch": B, "route": ("register elimination" if nu_ <= 16 else
+                                  "shared-memory elimination, clamped pivots" if nu_ <= riccati.MAX_NU
+                                  else "shared-memory elimination, jitter and NaN fallback (c)"),
+        }
+        solver_widths[label] = {**timing, "errors": reading, "config": path}
+        width_readings.append((label, reading))
+        log(f"  {label} ({path}, batch {B}, form {'b' if invariant else 'a'}, {timing['route']}): "
+            f"float32 kernel {reading['float32']:.2e}, plain float32 {reading['plain_float32']:.2e}"
+            + (f", float64 kernel {reading['float64']:.2e}" if "float64" in reading else
+               ", float64 refused (ValueError)")
+            + f" of the largest entry {scale:.3g}\n    {timing['ms']:.4f} ms eager, "
+            f"{timing['ms_per_launch']:.4f} ms per launch; bound {timing['bound_ms']:.4f} ms "
+            f"({timing['bound_by']}); torch.linalg loop {timing['library_ms']:.2f} ms; plain "
+            f"{timing['plain_ms']:.1f} ms; runtime-sized instance, {timing['registers']} registers, "
+            f"{timing['local_bytes']} bytes of local memory, {timing['smem_bytes']} bytes of "
+            "shared memory a block")
+    # every reading is printed before the first check.  Tolerances: the
+    # float64 kernel, phase 3's float64 route, 1e-10 of the largest entry.
+    # The float32 kernel: phase 3's 1e-4 holds on its random stage data, but
+    # on the solver's data the plain version run in float32 is itself 1.15e-4
+    # from float64 at 27/21 (on an H100), so K1 in float32 is held to phase
+    # 4's tolerance on K from the solver path, 1e-3 of the largest entry, and
+    # to within 3x of the plain version's own float32 error (at most 1.4x over
+    # the five widths on an H100)
+    W32_FACTOR = 3.0
+    for label, reading in width_readings:
+        if "float64" in reading:
+            check(reading["float64"] <= KERNEL_RTOL_F64,
+                  f"{label}: float64 kernel within {KERNEL_RTOL_F64} of the largest entry")
+        else:
+            check(label == "27x93", f"{label}: float64 refused only where shared memory is short")
+        check(reading["float32"] <= K_RTOL
+              and reading["float32"] <= W32_FACTOR * reading["plain_float32"],
+              f"{label}: float32 kernel within {K_RTOL} of the largest entry and within "
+              f"{W32_FACTOR}x of the plain version's float32 error")
+    results["solver_widths"] = solver_widths
+
+    # -- 12. the obstacle course in the closed loop ----------------------------------
+    FB_TICKS = 100
+    log(f"== 12. closed loop on the card: full_bottle_point1, {RATE:.0f} Hz, {FB_TICKS} ticks")
+    fb_loop_cfg = MPCSettings.from_config(fb_config["controller"]).al_config()
+    sim_fb = UprightSimulation(fb_config["simulation"])
+    init_fb, run_fb = build_device_loop(fb, sim_fb, al_cfg=fb_loop_cfg, ctrl_rate=RATE)
+    t0 = time.perf_counter()
+    carry_fb0 = init_fb()  # the 12-iteration cold solve
+    torch.cuda.synchronize()
+    fb_loop_cold_s = time.perf_counter() - t0
+    riccati.launch_count = 0
+    contact.launch_count = 0
+    t0 = time.perf_counter()
+    carry_fb, metrics_fb = run_fb(carry_fb0, FB_TICKS)
+    torch.cuda.synchronize()
+    fb_loop_s = time.perf_counter() - t0
+    launches_fb_loop_k1, launches_fb_loop_p1 = riccati.launch_count, contact.launch_count
+    check(launches_fb_loop_k1 == FB_TICKS * fb_loop_cfg.iterations,
+          f"K1 was launched ticks x SQP iterations times ({launches_fb_loop_k1})")
+    check(launches_fb_loop_p1 == FB_TICKS, f"P1 was launched once per tick ({launches_fb_loop_p1})")
+    cost_fb, eq_fb, r_fb = metrics_fb.cost.cpu(), metrics_fb.eq_viol.cpu(), metrics_fb.r_ew_w.cpu()
+    check(bool(torch.isfinite(cost_fb).all() and torch.isfinite(eq_fb).all()
+               and torch.isfinite(r_fb).all()), "costs, eq_viol and EE positions finite")
+    disp_fb = sim_fb.object_displacements(carry_fb.sim)[0]
+    t_last = float(carry_fb.t) - 1.0 / RATE  # the time of the last replan
+    coll_fb = min_collision_row(fb, carry_fb.solver.X, carry_fb.solver.U, t_last)
+    target_fb = fb.target.poses[0, :3].cpu()
+    ee_err_fb = [float(torch.linalg.vector_norm(r_fb[i] - target_fb)) for i in (0, -1)]
+    log(f"  {FB_TICKS} ticks in {fb_loop_s:.2f} s ({fb_loop_s * 1e3 / FB_TICKS:.2f} ms per tick; "
+        f"cold solve {fb_loop_cold_s:.2f} s); EE error to the first waypoint {ee_err_fb[0]:.4f} -> "
+        f"{ee_err_fb[1]:.4f} m; final eq_viol {float(eq_fb[-1]):.2e}; bottle displacement "
+        f"{float(disp_fb.max()):.2e} m; smallest collision row of the last plan {coll_fb:.4f} m")
+    check(bool(np.isfinite(disp_fb).all() and (disp_fb < 0.03).all()),
+          "the bottle stays within 0.03 m of its place on the tray")
+    check(coll_fb > -0.05, "the last plan keeps every collision row above -0.05")
+    fb_tick_host_ms = host_ms(lambda: run_fb(carry_fb, 1))
+    fb_plant_ms = host_ms(lambda: sim_fb.step(carry_fb.sim, carry_fb.sim.v, n_steps=10))
+    log(f"  closed loop, host ms per tick: {fb_tick_host_ms:.2f} = replan "
+        f"{fb_tick_host_ms - fb_plant_ms:.2f} + plant {fb_plant_ms:.2f} (thing_demo in phase 9: "
+        f"{tick_ms:.2f})")
+    results.update(fb_loop_ticks=FB_TICKS, fb_loop_s=fb_loop_s, fb_loop_cold_solve_s=fb_loop_cold_s,
+                   fb_loop_ee_err=ee_err_fb, fb_loop_eq_viol_final=float(eq_fb[-1]),
+                   fb_loop_bottle_displacement=float(disp_fb.max()),
+                   fb_loop_min_collision_row=coll_fb, fb_loop_tick_ms=fb_tick_host_ms,
+                   fb_loop_plant_ms=fb_plant_ms, fb_loop_replan_ms=fb_tick_host_ms - fb_plant_ms)
+
     # -- optional: where one solve's time goes ---------------------------------
-    def phase_breakdown(label, p, x0, st):
-        """Host time of each phase of one SQP iteration between
+    def phase_breakdown(label, ocp, p, x0, st):
+        """Host time of each phase of one SQP iteration of ``ocp`` between
         synchronisations (median of 5), then a profiler trace of 3 solves."""
 
         def timed(fn, reps=5):
@@ -839,12 +1104,66 @@ def main():
             log("    traced: the profiler showed no device time; busy share not measured")
         return out
 
+    def jac_mode_times(label, problem, p, x0, st):
+        """Host time of the stage derivatives in each Jacobian mode between
+        synchronisations, the modes taken in turns (wide, blocked, rev, rev,
+        blocked, wide; three rounds, the median of six per mode), and each
+        mode's largest difference from the wide one relative to the largest
+        entry."""
+        X = torch.cat([x0.unsqueeze(1), st.X[:, 1:]], dim=1)
+        x, u = X[:, :-1], st.U
+        nq_ = problem.dims.robot_q
+        blocks = (nq_,) * 3 + ((9 * problem.dims.num_obstacles,) if problem.dims.num_obstacles
+                               else ())
+        fns = {}
+        for mode, kw in (("wide", dict(x_jac_blocks=None, jac_mode="fwd")),
+                         ("blocked", dict(x_jac_blocks=blocks, jac_mode="fwd")),
+                         ("rev", dict(x_jac_blocks=None, jac_mode="rev"))):
+            o = dataclasses.replace(problem.ocp, **kw)
+            fns[mode] = (lambda o=o: al._stage_derivatives(o, al_cfg, x, u, p["stage"],
+                                                          st.lam, st.mu))
+        outs = {mode: fn() for mode, fn in fns.items()}  # warm-up, and the values
+        times = {mode: [] for mode in fns}
+        for _ in range(3):
+            for mode in list(fns) + list(reversed(fns)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fns[mode]()
+                torch.cuda.synchronize()
+                times[mode].append((time.perf_counter() - t0) * 1e3)
+        g_ref, H_ref = outs["wide"]
+        out = {}
+        for mode, (g, H) in outs.items():
+            diff = max(float((g - g_ref).abs().max()) / max(1.0, float(g_ref.abs().max())),
+                       float((H - H_ref).abs().max()) / max(1.0, float(H_ref.abs().max())))
+            out[mode] = {"ms": statistics.median(times[mode]), "diff_from_wide": diff}
+        log(f"  [{label}] stage derivatives: " + ", ".join(
+            f"{m} {v['ms']:.2f} ms (vs wide {v['diff_from_wide']:.1e})" for m, v in out.items()))
+        return out
+
     if args.breakdown:
-        log("== 10. breakdown of one solve (optional)")
+        log("== 13. breakdown of one solve (optional)")
+        # the Jacobian modes before the profiler trace and in turns, so that
+        # neither what ran before nor the order favours a mode
+        log("  the three Jacobian modes of the stage derivatives (OCP.x_jac_blocks, jac_mode)")
+        results["jac_modes"] = {
+            "thing_demo_batch512": jac_mode_times(f"thing_demo, batch {BATCH}", prob, params,
+                                                  x0s, prev_state),
+            "thing_demo_batch1": jac_mode_times("thing_demo, batch 1", prob, params1,
+                                                obs[-1:].clone(), state),
+            "full_bottle_batch512": jac_mode_times(f"full_bottle_point1, batch {BATCH}", fb,
+                                                   fb_params, fb_x0s, fb_prev_state),
+            "full_bottle_batch1": jac_mode_times("full_bottle_point1, batch 1", fb, fb_params1,
+                                                 fb_obs[-1:].clone(), fb_state),
+        }
         results["breakdown_batch512"] = phase_breakdown(
-            f"batch {BATCH}", params, x0s, prev_state)
+            f"thing_demo, batch {BATCH}", ocp, params, x0s, prev_state)
         results["breakdown_batch1"] = phase_breakdown(
-            "batch 1", params1, obs[-1:].clone(), state)
+            "thing_demo, batch 1", ocp, params1, obs[-1:].clone(), state)
+        results["breakdown_full_bottle_batch512"] = phase_breakdown(
+            f"full_bottle_point1, batch {BATCH}", fb_ocp, fb_params, fb_x0s, fb_prev_state)
+        results["breakdown_full_bottle_batch1"] = phase_breakdown(
+            "full_bottle_point1, batch 1", fb_ocp, fb_params1, fb_obs[-1:].clone(), fb_state)
 
     def t_ms(label, key="ms"):
         return round(kernel_times[label][key], 6)
@@ -883,11 +1202,23 @@ def main():
                     ("runtime_sized_batch1", "form_b_1x20x27x13_runtime_sized"),
                     ("float64", "form_b_512x20x27x13_f64"),
                     ("wide_64x20x27x45", "form_b_64x20x27x45"),
-                    ("long_64x200x27x13", "form_b_64x200x27x13"))},
+                    ("long_64x200x27x13", "form_b_64x200x27x13"))}
+                # phase 11's widths, as its ms_<width> keys below
+                | {w: round(v["ms_per_launch"], 6) for w, v in solver_widths.items()},
                 "launches_batched_path": launches_batched,
                 "launches_replan_path": launches_replan,
                 "launches_closed_loop": launches_loop_k1,
                 "launches_per_solve": al_cfg.iterations,
+                # phase 11: the solver's own stage data at this slice's widths
+                # (runtime-sized instance, float32), one eager call; per launch
+                # in ms_per_launch
+                **{f"ms_{w}": round(v["ms"], 6) for w, v in solver_widths.items()},
+                "bound_ms_solver_widths": {w: v["bound_ms"] for w, v in solver_widths.items()},
+                "library_ms_solver_widths": {w: v["library_ms"] for w, v in solver_widths.items()},
+                "plain_ms_solver_widths": {w: v["plain_ms"] for w, v in solver_widths.items()},
+                "launches_full_bottle_batched_path": launches_fb,
+                "launches_full_bottle_replan_path": launches_fb_replan,
+                "launches_full_bottle_closed_loop": launches_fb_loop_k1,
             },
             {
                 "name": "plant_substeps",
@@ -910,6 +1241,7 @@ def main():
                 "ms_per_launch": {k: round(v["ms_per_launch"], 6) for k, v in plant_times.items()},
                 "max_abs_err_float64": plant_err64,
                 "launches_per_tick": launches_loop_p1 / LOOP_TICKS,
+                "launches_full_bottle_closed_loop": launches_fb_loop_p1,
             },
         ]
     }
@@ -923,7 +1255,9 @@ def main():
             json.dump(results, f, indent=1)
 
     log(f"solves_per_s={solves_per_s:.1f} replan_ms={replan_ms:.3f} "
-        f"loop_tick_ms={tick_ms:.2f} total_s={time.perf_counter() - t_start:.1f}")
+        f"loop_tick_ms={tick_ms:.2f} fb_solves_per_s={fb_solves_per_s:.1f} "
+        f"fb_replan_ms={fb_replan_ms:.3f} fb_loop_tick_ms={fb_tick_host_ms:.2f} "
+        f"total_s={time.perf_counter() - t_start:.1f}")
     print(json.dumps(kernels), flush=True)
     print(card_line, flush=True)
     print(json.dumps({

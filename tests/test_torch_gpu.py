@@ -10,7 +10,10 @@ port do not need.)
 
 ``chip_smoke.py`` holds the kernel against its plain version at the
 main-path shapes; these cover the rest: the narrowest input block and the
-widths on each side of the route switch (nu = 24, 25, 32, 45), a single stage
+widths on each side of the route switch (nu = 24, 25, 32, 45), the stage data
+the solver hands the kernel on the obstacle-course, frictional and wide
+problems (27/21, 18/18, 36/13, 27/33, 27/93; float64 at 27/93 refused), the
+three Jacobian modes of the stage derivatives, a single stage
 and a long horizon, odd widths (rows that cannot be copied 16 bytes at a
 time), a shape whose shared memory exceeds the 48 KB static limit (the opt-in
 attribute path), both input forms, the instances compiled for the shipped
@@ -30,7 +33,7 @@ from upright_tpu_torch.tools.plant_data import (
     plant_for,
     tick_inputs,
 )
-from upright_tpu_torch.tools.stage_data import stage_data
+from upright_tpu_torch.tools.stage_data import solver_stage_data, stage_data
 
 pytestmark = pytest.mark.gpu
 
@@ -160,6 +163,115 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(card):
         riccati.riccati_backward(
             *(torch.as_tensor(a, dtype=torch.float32, device=card) for a in huge), reg=REG)
     assert riccati.launch_count == before  # nothing was launched
+
+
+# -- K1 on the solver's own stage data ----------------------------------------------
+
+# (config, batch): the widths the solver hands K1 on this slice's problems
+SOLVER_WIDTHS = {
+    "27x21": ("ral23/static_obstacles/full_bottle_point1.yaml", 16),
+    "18x18": ("demos/ur10_friction_demo.yaml", 16),
+    "36x13": ("ral23/sudden_obstacle/sudden_t1.0.yaml", 16),
+    "27x33": ("ral23/freespace/full_dice_point1.yaml", 8),
+    "27x93": ("ral23/static_obstacles/full_cups_point2.yaml", 4),
+}
+
+
+@pytest.fixture(scope="module")
+def solver_data():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    cache = {}
+
+    def get(width):
+        if width not in cache:
+            path, batch = SOLVER_WIDTHS[width]
+            cache[width] = solver_stage_data(path, batch)
+        return cache[width]
+
+    return get
+
+
+@pytest.mark.parametrize("width", list(SOLVER_WIDTHS))
+def test_kernel_matches_plain_on_solver_stage_data(solver_data, width):
+    """The stage data of the second iteration of a cold solve on the card:
+    the float32 kernel within 1e-3 of the largest entry of the float64 plain
+    version (on this data the plain version in float32 is itself 1.2e-4 off
+    at 27/21, see chip_smoke.py phase 11), and (where a block's shared memory
+    holds it) the float64 kernel within 1e-10 of it."""
+    data = solver_data(width)
+    assert f"{data[2].shape[-1]}x{data[1].shape[-1]}" == width
+    f64 = tuple(t.double() for t in data)
+    K_ref, kff_ref = riccati.riccati_backward_plain(*f64, reg=REG)
+    scale = max(1.0, float(K_ref.abs().max()))
+    K, kff = riccati.riccati_backward(*data, reg=REG)
+    torch.cuda.synchronize()
+    assert float((K.double() - K_ref).abs().max()) < 1e-3 * scale
+    assert float((kff.double() - kff_ref).abs().max()) < 1e-3 * scale
+    if width != "27x93":
+        K64, kff64 = riccati.riccati_backward(*f64, reg=REG)
+        torch.cuda.synchronize()
+        assert float((K64 - K_ref).abs().max()) < 1e-10 * scale
+        assert float((kff64 - kff_ref).abs().max()) < 1e-10 * scale
+
+
+def test_float64_refused_where_shared_memory_is_short(solver_data):
+    """27/93 in float64 needs 439,776 bytes of shared memory a block: the
+    wrapper raises and launches nothing (float32 fits)."""
+    data = solver_data("27x93")
+    assert riccati.smem_bytes(27, 93, torch.float32, True) <= riccati.MAX_SMEM_BYTES
+    assert riccati.smem_bytes(27, 93, torch.float64, True) > riccati.MAX_SMEM_BYTES
+    before = riccati.launch_count
+    with pytest.raises(ValueError, match="shared memory"):
+        riccati.riccati_backward(*(t.double() for t in data), reg=REG)
+    assert riccati.launch_count == before
+
+
+@pytest.mark.parametrize("config", ["demos/thing_demo.yaml",
+                                    "ral23/static_obstacles/full_bottle_point1.yaml",
+                                    "ral23/sudden_obstacle/sudden_t1.0.yaml"])
+def test_jacobian_modes_agree_on_the_card(card, config):
+    """The stage derivatives in the three Jacobian modes (one wide jacfwd,
+    one per block of x-columns, one jacrev) at batch 8 in float32: the same
+    to float32 rounding, 1e-4 of the largest entry."""
+    import dataclasses
+
+    import numpy as np
+
+    import upright_tpu_torch.config as cfg
+    from upright_tpu_torch.ocp.problem import build_problem
+    from upright_tpu_torch.parallel.batch import broadcast_params
+    from upright_tpu_torch.solver import al
+
+    prob = build_problem(cfg.load_config(cfg.resolve_package_path(
+        {"package": "configs", "path": config})))
+    o = prob.ocp
+    rng = np.random.default_rng(0)
+    B = 8
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=card)
+
+    x = t(prob.x0.cpu().numpy() + 0.05 * rng.standard_normal((B, o.N, o.nx)))
+    u = t(0.1 * rng.standard_normal((B, o.N, o.nu)))
+    lam = t(rng.standard_normal((B, o.N, o.n_eq)))
+    mu = t(np.abs(rng.standard_normal((B, o.N, o.n_ineq))))
+    p = broadcast_params(prob.stage_params(0.0), B)["stage"]
+    nq = prob.dims.robot_q
+    blocks = (nq,) * 3 + ((9 * prob.dims.num_obstacles,) if prob.dims.num_obstacles else ())
+    out = {}
+    for mode, kw in (("wide", dict(x_jac_blocks=None, jac_mode="fwd")),
+                     ("blocked", dict(x_jac_blocks=blocks, jac_mode="fwd")),
+                     ("rev", dict(x_jac_blocks=None, jac_mode="rev"))):
+        ocp = dataclasses.replace(o, **kw)
+        out[mode] = al._stage_derivatives(ocp, al.ALConfig(), x, u, p, lam, mu)
+    g_ref, H_ref = out["wide"]
+    assert g_ref.dtype == torch.float32 and bool(torch.isfinite(H_ref).all())
+    for mode in ("blocked", "rev"):
+        g, H = out[mode]
+        assert g.dtype == H.dtype == torch.float32
+        assert float((g - g_ref).abs().max()) <= 1e-4 * max(1.0, float(g_ref.abs().max()))
+        assert float((H - H_ref).abs().max()) <= 1e-4 * max(1.0, float(H_ref.abs().max()))
 
 
 # -- the plant's contact kernel P1 ----------------------------------------------

@@ -183,13 +183,3 @@ def test_multi_waypoint_interpolation_equal():
     # differentiable and vmappable, as the solver needs it
     J = torch.func.vmap(torch.func.jacfwd(lambda t: tt.interpolate(t)[0]))(torch.as_tensor(ts))
     assert torch.isfinite(J).all()
-
-
-@pytest.mark.parametrize(
-    "name,key",
-    [("thing_obstacle_demo", "obstacles"), ("ur10_friction_demo", "frictionless")],
-)
-def test_unported_feature_raises(name, key):
-    conf = tcfg.load_config(demo_path(tcfg, name))
-    with pytest.raises(NotImplementedError, match=key):
-        tbuild(conf, N=N, **CPU64)

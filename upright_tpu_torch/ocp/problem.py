@@ -1,22 +1,22 @@
 """Assembly of the upright OCP: config -> OCP functions + parameter dicts.
 
-Counterpart of ``upright_tpu/ocp/problem.py`` for the features the demo
-problems ``demos/thing_demo.yaml`` and ``demos/ur10_demo.yaml`` use:
-triple-integrator dynamics, quadratic + EE-pose Gauss-Newton stage cost,
-frictionless balance (Newton-Euler equality rows on mass-scaled force
-variables), state/input box rows and the stationary terminal equality.  A
-config that switches on anything else raises ``NotImplementedError`` naming
-the config key.
+Counterpart of ``upright_tpu/ocp/problem.py``: the whole problem (dynamics,
+costs, balance constraints with frictionless or frictional contacts, limits,
+EE box, inertial alignment, collision avoidance, projectile avoidance, the
+rolling rows of a nonholonomic base) is assembled into stage functions at
+build time.
 
 Per-solve data (stage times, targets, inertial parameters) live in a
-parameter dict so one problem serves every solve and batches over instances.
-The port is batch-first: stage functions take leading batch dimensions, and
-``shift_warm_start`` / ``heal_warm_start`` act on states with a leading
-instance axis.
+parameter dict so one problem serves every solve and batches over instances;
+dynamic-obstacle states live in x.  The port is batch-first: stage functions
+take leading batch dimensions, and ``shift_warm_start`` / ``heal_warm_start``
+act on states with a leading instance axis.
 
 State / input layout:
-    x = [q (nq), v (nq), a (nq)]
-    u = [jerk (nq), forces (nc)]
+    x = [q (nq), v (nq), a (nq), obs_1 (9), ..., obs_o (9)]
+    u = [jerk (nq), forces (nf * nc)]
+Dynamic-obstacle states are 9-vectors [r, v, a] with constant-acceleration
+dynamics.
 """
 
 from __future__ import annotations
@@ -31,7 +31,8 @@ import upright_tpu_torch.config as cfg_mod
 from upright_tpu_torch import resolve_device
 from upright_tpu_torch.core import balance as bal
 from upright_tpu_torch.core.balance import BalanceModel
-from upright_tpu_torch.core.math import dC_dtt, orientation_error, rot_to_quat
+from upright_tpu_torch.core.math import dC_dtt, matvec, orientation_error, rot_to_quat
+from upright_tpu_torch.core.polyhedron import plane_span
 from upright_tpu_torch.kinematics.robot import RobotModel, build_robot_model
 from upright_tpu_torch.ocp.reference import TargetTrajectory
 from upright_tpu_torch.solver.ocp import OCP, IneqBoxRows, SolverState
@@ -46,8 +47,8 @@ class UprightDims:
     robot_u: int
     num_objects: int = 0
     num_contacts: int = 0
-    nf: int = 1  # force dim per contact: 1 frictionless
-    num_obstacles: int = 0  # dynamic obstacles (not ported yet: always 0)
+    nf: int = 1  # force dim per contact: 1 frictionless, 3 frictional
+    num_obstacles: int = 0  # dynamic obstacles, 9 states each
 
     @property
     def f(self):
@@ -165,25 +166,32 @@ class UprightProblem:
     def heal_warm_start(self, state: SolverState, x0):
         """Repair stale components of the warm start for the new x0 (B, nx).
 
-        The robot part keeps the stored (near-optimal) trajectory for normal
-        tracking, but after a LARGE state jump (e.g. post-brake re-engage)
-        the stored plan is unreachable from x0 and its stage-0 defect stalls
-        the line search; in that case the state trajectory is re-rolled from
-        x0 through the stored inputs.  The switch is gated, per instance, on
+        Dynamic-obstacle tails evolve autonomously, so they are always
+        re-propagated from the measured obstacle state.  The robot part keeps
+        the stored (near-optimal) trajectory for normal tracking, but after a
+        LARGE state jump (e.g. post-brake re-engage) the stored plan is
+        unreachable from x0 and its stage-0 defect stalls the line search; in
+        that case the state trajectory is re-rolled from x0 through the
+        stored inputs.  The switch is gated, per instance, on
         the norm of the POSITION jump only: per-replan drift during fast
         nominal motion lives in the velocity/acceleration states.
         """
         x0 = torch.as_tensor(x0, dtype=state.X.dtype, device=state.X.device)
         xs = [x0]
         for k in range(state.U.shape[1]):
-            # stage params do not affect the robot dynamics
+            # stage params do not affect the robot/obstacle dynamics
             xs.append(self.ocp.dynamics(xs[-1], state.U[:, k], None))
         X_roll = torch.stack(xs, dim=1)
+
+        X_keep = state.X
+        if self.dims.num_obstacles:
+            rx = self.dims.robot_x
+            X_keep = torch.cat([X_keep[..., :rx], X_roll[..., rx:]], dim=-1)
 
         nq = self.dims.robot_q
         jump = torch.linalg.vector_norm(x0[:, :nq] - state.X[:, 0, :nq], dim=-1)
         use_roll = (jump > self.heal_jump_threshold).view(-1, 1, 1)
-        return state.replace(X=torch.where(use_roll, X_roll, state.X))
+        return state.replace(X=torch.where(use_roll, X_roll, X_keep))
 
     def stage_params(self, t0, target: Optional[TargetTrajectory] = None,
                      balance_params=None):
@@ -227,37 +235,32 @@ def _triple_integrator_step(dt):
     return step
 
 
-def _reject_unported(ctrl, robot_conf, balancing, sqp_conf):
-    """Raise for every config switch whose code the port does not carry yet."""
+def _obstacle_step(dt):
+    """Constant-acceleration 9-state points, exact; s (..., n_obs, 9)."""
 
-    def enabled(key, flag="enabled"):
-        return bool(ctrl.get(key, {}).get(flag, False))
+    def step(s):
+        r, v, a = s[..., 0:3], s[..., 3:6], s[..., 6:9]
+        return torch.cat([r + dt * v + 0.5 * dt**2 * a, v + dt * a, a], dim=-1)
 
-    unported = []
-    if balancing.get("enabled", False) and not balancing.get("frictionless", True):
-        unported.append("controller.balancing.frictionless=false (frictional cones)")
-    if enabled("obstacles"):
-        unported.append("controller.obstacles.enabled (collision rows, dynamic obstacles)")
-    if enabled("projectile_path_constraint"):
-        unported.append("controller.projectile_path_constraint.enabled")
-    if enabled("projectile_plane_constraint"):
-        unported.append("controller.projectile_plane_constraint.enabled")
-    if enabled("inertial_alignment", "cost_enabled"):
-        unported.append("controller.inertial_alignment.cost_enabled")
-    if enabled("inertial_alignment", "constraint_enabled"):
-        unported.append("controller.inertial_alignment.constraint_enabled")
-    if enabled("end_effector_box_constraint"):
-        unported.append("controller.end_effector_box_constraint.enabled")
-    if robot_conf.get("base_type", "omnidirectional").lower() == "nonholonomic":
-        unported.append("controller.robot.base_type=nonholonomic (rolling rows)")
-    if sqp_conf.get("jac_mode", "auto") not in ("auto", "fwd"):
-        unported.append("controller.sqp.jac_mode=rev")
-    if sqp_conf.get("jac_col_blocks", "auto") is True:
-        unported.append("controller.sqp.jac_col_blocks=true")
-    if unported:
-        raise NotImplementedError(
-            "not yet ported to upright_tpu_torch: " + "; ".join(unported)
-        )
+    return step
+
+
+def _use_jac_col_blocks(sqp_conf: dict, device: torch.device) -> bool:
+    """Resolve sqp.jac_col_blocks ("auto" | true | false, default "auto").
+
+    "auto" splits the stage Jacobian's x-columns into the [q | v | a |
+    obstacles] blocks on the CPU, as the reference does there (the v- and
+    a-columns skip the rotation-chain JVPs), and keeps one wide jacfwd on the
+    card: on an H100 the eager solve is bound by its launches, and the four
+    block sweeps took 2.2-2.8x the wide one (``chip_smoke.py --breakdown``,
+    PERF.md section 5).
+    """
+    choice = sqp_conf.get("jac_col_blocks", "auto")
+    if isinstance(choice, bool):
+        return choice
+    if choice != "auto":
+        raise ValueError(f"sqp.jac_col_blocks must be 'auto' or bool, got {choice!r}")
+    return device.type == "cpu"
 
 
 def build_problem(config: dict, N: Optional[int] = None, device="cuda",
@@ -267,50 +270,64 @@ def build_problem(config: dict, N: Optional[int] = None, device="cuda",
     device = resolve_device(device)
     ctrl = config["controller"]
     robot_conf = ctrl["robot"]
-    balancing = ctrl.get("balancing", {"enabled": False})
-    sqp_conf = ctrl.get("sqp", {})
-    _reject_unported(ctrl, robot_conf, balancing, sqp_conf)
+    robot = build_robot_model(robot_conf)
+    nq = robot.nq
 
     def tens(a):
         return torch.as_tensor(np.asarray(a, dtype=float), dtype=dtype, device=device)
 
-    robot = build_robot_model(robot_conf)
-    nq = robot.nq
-
     # -- balancing model ------------------------------------------------
+    balancing = ctrl.get("balancing", {"enabled": False})
     if balancing.get("enabled", False):
         model, names, objects, contacts = cfg_mod.parse_control_objects(
             dict(ctrl), device=device, dtype=dtype
         )
+        frictionless = bool(balancing.get("frictionless", True))
+        nf = 1 if frictionless else 3
         nc = model.num_contacts
         n_obj = model.num_objects
     else:
         model = BalanceModel.empty(device=device, dtype=dtype)
-        nc, n_obj = 0, 0
-    nf = 1
+        frictionless, nf, nc, n_obj = True, 1, 0, 0
+
+    obstacles_conf = ctrl.get("obstacles", {"enabled": False})
+    dyn_obs = obstacles_conf.get("dynamic", []) if obstacles_conf.get("enabled") else []
+    num_obstacles = len(dyn_obs)
 
     dims = UprightDims(
         robot_q=nq, robot_x=3 * nq, robot_u=nq,
         num_objects=n_obj, num_contacts=nc, nf=nf,
+        num_obstacles=num_obstacles,
     )
+    rx = dims.robot_x
 
     # -- horizon / transcription ---------------------------------------
+    sqp_conf = ctrl.get("sqp", {})
     dt = float(sqp_conf.get("dt", 0.1))
     horizon = float(ctrl.get("mpc", {}).get("time_horizon", 2.0))
     if N is None:
         N = int(round(horizon / dt))
 
     robot_step = _triple_integrator_step(dt)
+    obs_step = _obstacle_step(dt)
+    # Nonholonomic (unicycle) bases keep the exact linear triple-integrator
+    # dynamics; the rolling constraint (zero lateral base velocity) enters as
+    # an equality constraint.
+    nonholonomic = robot_conf.get("base_type", "omnidirectional").lower() == "nonholonomic"
 
     def dynamics(x, u, p):
-        q, v, a = x[..., :nq], x[..., nq : 2 * nq], x[..., 2 * nq : 3 * nq]
+        q, v, a = x[..., :nq], x[..., nq : 2 * nq], x[..., 2 * nq : rx]
         j = u[..., :nq]
-        return torch.cat(robot_step(q, v, a, j), dim=-1)
+        parts = list(robot_step(q, v, a, j))
+        if num_obstacles:
+            obs = x[..., rx:].unflatten(-1, (num_obstacles, 9))
+            parts.append(obs_step(obs).flatten(-2))
+        return torch.cat(parts, dim=-1)
 
     # -- weights ---------------------------------------------------------
     W_input_np = cfg_mod.parse_diag_matrix_dict(ctrl["weights"]["input"])
     W_state_robot = tens(cfg_mod.parse_diag_matrix_dict(ctrl["weights"]["state"]))
-    W_ee = tens(cfg_mod.parse_diag_matrix_dict(ctrl["weights"]["end_effector"]))
+    W_ee_np = cfg_mod.parse_diag_matrix_dict(ctrl["weights"]["end_effector"])
     force_weight = float(balancing.get("force_weight", 1e-3))
 
     # desired joint state: the initial state (velocity/acceleration weights
@@ -319,7 +336,8 @@ def build_problem(config: dict, N: Optional[int] = None, device="cuda",
     x0_robot = tens(x0_robot_np)
     xd_robot = x0_robot
 
-    gravity = tens(cfg_mod.parse_array(config.get("gravity", [0, 0, -9.81])))
+    gravity_np = np.asarray(cfg_mod.parse_array(config.get("gravity", [0, 0, -9.81])), dtype=float)
+    gravity = tens(gravity_np)
 
     # -- contact-force variable scaling (conditioning) --------------------
     # The NE residuals are mass-normalized, so their Jacobian w.r.t.
@@ -356,9 +374,11 @@ def build_problem(config: dict, N: Optional[int] = None, device="cuda",
 
     FORCE_BOUND = 1e2  # newtons
     if dims.f > 0:
-        # bounds live on the scaled variables: [0, FORCE_BOUND physical]
-        f_lb = np.zeros(dims.f)
-        f_ub = FORCE_BOUND / force_scale
+        # bounds live on the scaled variables: +-FORCE_BOUND physical
+        # (frictionless normal forces: [0, FORCE_BOUND])
+        f_bound = FORCE_BOUND / force_scale
+        f_lb = np.zeros(dims.f) if frictionless else -f_bound
+        f_ub = f_bound.copy()
     else:
         f_lb = np.zeros(0)
         f_ub = np.zeros(0)
@@ -370,25 +390,61 @@ def build_problem(config: dict, N: Optional[int] = None, device="cuda",
 
     # -- EE helpers ------------------------------------------------------
     def ee_state_of(x):
-        return robot.ee_state(x[..., : dims.robot_x])
+        return robot.ee_state(x[..., :rx])
 
     def interp_target(p):
         tgt = TargetTrajectory(times=p["target_times"], poses=p["target_poses"])
         return tgt.interpolate(p["t"])
 
     # -- stage cost ------------------------------------------------------
+    n_obs_x = dims.x - rx
+
     def stage_quad(x, u, p):
-        dx = x[..., : dims.robot_x] - xd_robot
+        dx = x[..., :rx] - xd_robot
         return 0.5 * ((dx @ W_state_robot) * dx).sum(-1) + 0.5 * ((u @ W_u) * u).sum(-1)
 
-    H_quad = torch.block_diag(W_state_robot, W_u)
+    H_quad = torch.block_diag(
+        W_state_robot, torch.zeros((n_obs_x, n_obs_x), dtype=dtype, device=device), W_u
+    )
 
     def stage_quad_derivs(x, u, p):
         """Analytic gradient/Hessian of stage_quad (the Hessian is the
-        constant weight block diagonal, returned without batch axes)."""
-        dx = x[..., : dims.robot_x] - xd_robot
-        grad = torch.cat([dx @ W_state_robot.T, u @ W_u.T], dim=-1)
+        constant weight block diagonal, returned without batch axes;
+        obstacle-state columns are zero)."""
+        dx = x[..., :rx] - xd_robot
+        grad = torch.cat(
+            [dx @ W_state_robot.T, x.new_zeros(x.shape[:-1] + (n_obs_x,)), u @ W_u.T], dim=-1
+        )
         return grad, H_quad
+
+    # -- inertial alignment ------------------------------------------------
+    # alignment-vector modes: the default is the total EE-frame acceleration;
+    # use_angular_acceleration adds the term ddC_we @ com of an object CoM
+    # offset; align_with_fixed_vector (the "upward" mode) tracks the original
+    # normal direction instead.
+    ia_conf = ctrl.get("inertial_alignment", {})
+    ia_cost_enabled = bool(ia_conf.get("cost_enabled", False))
+    ia_con_enabled = bool(ia_conf.get("constraint_enabled", False))
+    ia_weight = float(ia_conf.get("cost_weight", 1.0))
+    ia_alpha = float(ia_conf.get("alpha", 0.0))
+    ia_fixed_vector = bool(ia_conf.get("align_with_fixed_vector", False))
+    ia_use_angular = bool(ia_conf.get("use_angular_acceleration", False))
+    ia_normal_np = np.asarray(ia_conf.get("contact_plane_normal", [0, 0, 1]), dtype=float)
+    ia_normal = tens(ia_normal_np)
+    ia_com = tens(ia_conf.get("com", [0.0, 0.0, 0.0]))
+    ia_span = tens(plane_span(ia_normal_np)) if (ia_cost_enabled or ia_con_enabled) else None
+    g_norm = float(np.linalg.norm(gravity_np))
+
+    def _alignment_vector(ee):
+        """EE-frame vector whose tangential components the alignment cost and
+        constraint act on, (..., 3)."""
+        C_ew = ee.C_we.transpose(-1, -2)
+        if ia_fixed_vector:
+            return matvec(C_ew, ia_normal)
+        a_total = ee.a_ew_w - gravity
+        if ia_use_angular:
+            a_total = a_total + matvec(dC_dtt(ee.C_we, ee.w_ew_w, ee.alpha_ew_w), ia_com)
+        return matvec(C_ew, a_total)
 
     # EE-error clamp (controller.ee_error_clamp, meters; 0 = off): bounds
     # the tracking pull when the target is unreachable.  Clamping the error
@@ -404,62 +460,214 @@ def build_problem(config: dict, N: Optional[int] = None, device="cuda",
         scale = torch.clamp(ee_clamp / torch.clamp(nrm, min=1e-9), max=1.0)
         return e_pos * scale
 
+    W_res_np = W_ee_np
+    if ia_cost_enabled:
+        W_res_np = np.zeros((8, 8))
+        W_res_np[:6, :6] = W_ee_np
+        W_res_np[6:, 6:] = ia_weight * np.eye(2)
+    W_res = tens(W_res_np)
+
     def stage_residuals(x, u, p):
-        """Nonlinear GN residuals: EE pose error.  Returns (r (..., 6), W)."""
+        """Nonlinear GN residuals: EE pose error (+ inertial alignment).
+        Returns (r (..., 6 or 8), W)."""
         rd, qd, _s = interp_target(p)
         ee = ee_state_of(x)
         q_act = rot_to_quat(ee.C_we)
-        e = torch.cat(
-            [_clamped(ee.r_ew_w - rd), orientation_error(q_act, qd)], dim=-1
-        )
-        return e, W_ee
+        parts = [_clamped(ee.r_ew_w - rd), orientation_error(q_act, qd)]
+        if ia_cost_enabled:
+            # alignment residual S @ <alignment vector>, normalized by |g| in
+            # the acceleration modes; in fixed-vector mode the GN residual
+            # S C_we^T n has the minimizer and curvature of the linear cost
+            e_align = matvec(ia_span, _alignment_vector(ee))
+            if not ia_fixed_vector:
+                e_align = e_align / g_norm
+            parts.append(e_align)
+        return torch.cat(parts, dim=-1), W_res
 
     def stage_cost(x, u, p):
         r, W = stage_residuals(x, u, p)
         return stage_quad(x, u, p) + 0.5 * ((r @ W) * r).sum(-1)
 
-    # -- equality constraints: object dynamics ---------------------------
-    def eq(x, u, p):
-        if n_obj == 0:
-            return x.new_zeros(x.shape[:-1] + (0,))
-        forces_flat = u[..., nq:] * fscale  # scaled variables -> physical newtons
-        scen = model.replace(params=p["obj_params"])
-        forces = bal.expand_frictionless_forces(scen, forces_flat)
-        ee = ee_state_of(x)
-        return bal.object_dynamics_constraints(scen, forces, ee, gravity)
+    # -- equality constraints: rolling rows + object dynamics -------------
+    def _rolling_rows(x):
+        # zero lateral velocity and acceleration of the unicycle base:
+        # [-sin(yaw), cos(yaw)] . (vx, vy) = 0 (and the same for ax, ay);
+        # entries stay (..., 1)-shaped (see core/math.py _mat1)
+        yaw = x[..., 2:3]
+        s_, c_ = torch.sin(yaw), torch.cos(yaw)
+        v_lat = -s_ * x[..., nq : nq + 1] + c_ * x[..., nq + 1 : nq + 2]
+        a_lat = -s_ * x[..., 2 * nq : 2 * nq + 1] + c_ * x[..., 2 * nq + 1 : 2 * nq + 2]
+        return torch.cat([v_lat, a_lat], dim=-1)
 
-    n_eq = 6 * n_obj
+    def eq(x, u, p):
+        rows = []
+        if nonholonomic:
+            rows.append(_rolling_rows(x))
+        if n_obj > 0:
+            forces_flat = u[..., nq:] * fscale  # scaled variables -> physical newtons
+            scen = model.replace(params=p["obj_params"])
+            if frictionless:
+                forces = bal.expand_frictionless_forces(scen, forces_flat)
+            else:
+                forces = forces_flat.unflatten(-1, (nc, 3))
+            ee = ee_state_of(x)
+            rows.append(bal.object_dynamics_constraints(scen, forces, ee, gravity))
+        if not rows:
+            return x.new_zeros(x.shape[:-1] + (0,))
+        return torch.cat(rows, dim=-1)
+
+    n_eq = 6 * n_obj + (2 if nonholonomic else 0)
 
     # -- inequality constraints -----------------------------------------
-    # Row order: [x_lo | x_hi | u_lo | u_hi]; so far every row is a
-    # box row (frictionless cones are the f >= 0 input bounds), so the
-    # smooth part is empty.
-    def ineq(x, u, p):
+    ee_box_conf = ctrl.get("end_effector_box_constraint", {"enabled": False})
+    ee_box_enabled = bool(ee_box_conf.get("enabled", False))
+    if ee_box_enabled:
+        xyz_lower = tens(ee_box_conf["xyz_lower"])
+        xyz_upper = tens(ee_box_conf["xyz_upper"])
+
+    collision = None
+    if obstacles_conf.get("enabled", False):
+        collision = _CollisionRows(
+            ctrl, robot, num_obstacles, float(obstacles_conf.get("minimum_distance", 0.1)),
+            device, dtype,
+        )
+
+    # projectile-path avoidance: keep named links at least distance_i from
+    # the predicted ballistic path of the thrown obstacle (the first dynamic
+    # obstacle), gated by the target's s flag
+    proj_conf = ctrl.get("projectile_path_constraint", {"enabled": False})
+    proj_enabled = bool(proj_conf.get("enabled", False)) and num_obstacles > 0
+    proj_links = list(proj_conf.get("collision_links", []))
+    proj_distances = np.asarray(proj_conf.get("distances", []), dtype=float)
+    proj_scale = float(proj_conf.get("scale", 1.0))
+    proj_enabled = proj_enabled and bool(proj_links)
+    if proj_enabled:
+        names_all = robot.chain.joint_names
+        proj_idx = torch.as_tensor([names_all.index(link) for link in proj_links], device=device)
+        proj_dist = tens(proj_distances)  # (n_links,)
+        proj_w = tens(proj_scale / proj_distances)
+
+    # projectile PLANE variant: keep the EE on the far side of a plane
+    # through the projectile, s * (n.(r_ew - r_obs) - w) >= 0
+    plane_conf = ctrl.get("projectile_plane_constraint", {"enabled": False})
+    plane_enabled = bool(plane_conf.get("enabled", False)) and num_obstacles > 0
+    plane_w = float(plane_conf.get("distance", 0.3))
+    plane_n_np = np.asarray(plane_conf.get("normal", [0.0, 1.0, 0.0]), dtype=float)
+    plane_n = tens(plane_n_np / np.linalg.norm(plane_n_np))
+
+    def _projectile_plane_rows(x, p):
+        _rd, _qd, s = interp_target(p)
+        r_obs = x[..., rx : rx + 3]
+        r_ee = ee_state_of(x).r_ew_w
+        d = ((r_ee - r_obs) * plane_n).sum(-1, keepdim=True)
+        return s.unsqueeze(-1) * (d - plane_w)
+
+    def _projectile_rows(x, p):
+        _rd, _qd, s = interp_target(p)
+        s = s.unsqueeze(-1)  # (..., 1)
+        x_obs = x[..., rx : rx + 9].unsqueeze(-2)  # (..., 1, 9)
+        r_obs, v_obs, a_obs = x_obs[..., 0:3], x_obs[..., 3:6], x_obs[..., 6:9]
+        r_link = robot.link_positions(x[..., :nq]).index_select(-2, proj_idx)
+        dt_c = _projectile_closest_time(r_link, r_obs, v_obs, a_obs)  # (..., n_links, 1)
+        s_l = s.unsqueeze(-1)
+        dt_c = torch.where(s_l > 0.5, torch.clamp(dt_c, min=0.0), torch.zeros_like(dt_c))
+        r_closest = r_obs + dt_c * v_obs + 0.5 * dt_c**2 * a_obs
+        delta = r_link - r_closest
+        return proj_w * s * (torch.linalg.vector_norm(delta, dim=-1) - proj_dist)
+
+    # Inequality stack, split so the solver can treat the box-limit block
+    # analytically (solver/ocp.py IneqBoxRows): row order is
+    # [cones | x_lo | x_hi | u_lo | u_hi | ee_box | alignment | collisions
+    #  | projectile | projectile plane].  The box rows have constant
+    # +/-identity Jacobians.
+    def _ineq_pre(x, u, p):
+        # friction cones (frictional mode; frictionless cones are the
+        # f >= 0 input bounds), evaluated on the SCALED force variables: the
+        # cone rows are positively homogeneous, so this is the physical cone
+        # divided by fscale_c, the same feasible set with O(1) rows for every
+        # object mass
+        if nc > 0 and not frictionless:
+            scen = model.replace(params=p["obj_params"])
+            return bal.contact_force_constraints_linearized(
+                scen, u[..., nq:].unflatten(-1, (nc, 3))
+            )
+        return None
+
+    def _ineq_box(x, u):
         rows = []
         if x_lb is not None:
-            xr = x[..., : dims.robot_x]
+            xr = x[..., :rx]
             rows.append(xr - x_lb)
             rows.append(x_ub - xr)
         if u_lb is not None:
             rows.append(u - u_lb)
             rows.append(u_ub - u)
+        return rows
+
+    def _ineq_post(x, u, p):
+        rows = []
+        # EE position box around the desired position
+        if ee_box_enabled:
+            rd, _qd, _s = interp_target(p)
+            r_ee = ee_state_of(x).r_ew_w
+            rows.append(r_ee - (rd + xyz_lower))
+            rows.append((rd + xyz_upper) - r_ee)
+        # inertial alignment cone
+        if ia_con_enabled:
+            a = _alignment_vector(ee_state_of(x))
+            a_n = (ia_normal * a).sum(-1, keepdim=True)
+            a_t = matvec(ia_span, a)
+            t0, t1 = a_t[..., 0:1], a_t[..., 1:2]
+            an = ia_alpha * a_n
+            rows.append(torch.cat(
+                [a_n, an - t0 - t1, an - t0 + t1, an + t0 - t1, an + t0 + t1], dim=-1))
+        # collision avoidance: sphere-sphere and sphere-ground distances
+        if collision is not None and collision.n_rows:
+            rows.append(collision(x))
+        # projectile path avoidance
+        if proj_enabled:
+            rows.append(_projectile_rows(x, p))
+        if plane_enabled:
+            rows.append(_projectile_plane_rows(x, p))
+        return rows
+
+    def _stack(x, rows):
         if not rows:
             return x.new_zeros(x.shape[:-1] + (0,))
         return torch.cat(rows, dim=-1)
 
-    def ineq_smooth(x, u, p):
-        return x.new_zeros(x.shape[:-1] + (0,))
+    def ineq(x, u, p):
+        pre = _ineq_pre(x, u, p)
+        return _stack(x, ([pre] if pre is not None else []) + _ineq_box(x, u)
+                      + _ineq_post(x, u, p))
 
+    def ineq_smooth(x, u, p):
+        pre = _ineq_pre(x, u, p)
+        return _stack(x, ([pre] if pre is not None else []) + _ineq_post(x, u, p))
+
+    # named inequality blocks, in stacking order (for diagnostics/logging)
     ineq_groups = []
+    if nc > 0 and not frictionless:
+        ineq_groups.append(("contact_force_constraints", 5 * nc))
     if x_lb is not None:
-        ineq_groups.append(("state_limits", 2 * dims.robot_x))
+        ineq_groups.append(("state_limits", 2 * rx))
     if u_lb is not None:
         ineq_groups.append(("input_limits", 2 * dims.u))
+    if ee_box_enabled:
+        ineq_groups.append(("ee_box_constraints", 6))
+    if ia_con_enabled:
+        ineq_groups.append(("alignment_constraints", 5))
+    if collision is not None and collision.n_rows:
+        ineq_groups.append(("collision_pair_distances", collision.n_rows))
+    if proj_enabled:
+        ineq_groups.append(("projectile_distances", len(proj_links)))
+    if plane_enabled:
+        ineq_groups.append(("projectile_plane", 1))
     n_ineq = sum(n for _, n in ineq_groups)
 
     box_rows = IneqBoxRows(
-        n_pre=0,
-        nx_box=dims.robot_x if x_lb is not None else 0,
+        n_pre=5 * nc if (nc > 0 and not frictionless) else 0,
+        nx_box=rx if x_lb is not None else 0,
         nu_box=dims.u if u_lb is not None else 0,
     )
 
@@ -470,10 +678,18 @@ def build_problem(config: dict, N: Optional[int] = None, device="cuda",
         rd, _qd, _s = interp_target(p)
         r_ee = ee_state_of(x).r_ew_w
         v = x[..., nq : 2 * nq]
-        a = x[..., 2 * nq : 3 * nq]
+        a = x[..., 2 * nq : rx]
         return torch.cat([_clamped(r_ee - rd), v, a], dim=-1)
 
     n_feq = 3 + 2 * nq
+
+    # Stacked-Jacobian differentiation mode (sqp.jac_mode: auto|fwd|rev);
+    # "auto" is fwd, as in the reference
+    jac_mode = sqp_conf.get("jac_mode", "auto")
+    if jac_mode == "auto":
+        jac_mode = "fwd"
+    if jac_mode not in ("fwd", "rev"):
+        raise ValueError(f"sqp.jac_mode must be auto|fwd|rev, got {jac_mode!r}")
 
     ocp = OCP(
         N=N, nx=dims.x, nu=dims.u, n_eq=n_eq, n_ineq=n_ineq, n_feq=n_feq,
@@ -483,14 +699,32 @@ def build_problem(config: dict, N: Optional[int] = None, device="cuda",
         stage_quad_derivs=stage_quad_derivs,
         ineq_smooth=ineq_smooth, ineq_box=box_rows,
         u_lb=u_lb, u_ub=u_ub,
-        # The discrete dynamics are exactly linear (triple integrator), so
-        # the solver may linearize once and hand the Riccati kernel one
-        # stage-invariant (A, B) pair (sqp.linear_dynamics).
+        # The discrete dynamics are exactly linear (triple integrator +
+        # constant-acceleration obstacles), so the solver may linearize once
+        # and hand the Riccati kernel one stage-invariant (A, B) pair
+        # (sqp.linear_dynamics).
         linear_dynamics=bool(sqp_conf.get("linear_dynamics", False)),
+        # x = [q, v, a, obstacle states]: per-block Jacobian columns, so the
+        # v/a/obstacle columns skip the rotation-chain JVPs
+        x_jac_blocks=(
+            (nq, nq, nq) + ((9 * num_obstacles,) if num_obstacles else ())
+            if _use_jac_col_blocks(sqp_conf, device)
+            else None
+        ),
+        jac_mode=jac_mode,
         device=device, dtype=dtype,
     )
 
     # -- initial state + target -----------------------------------------
+    obs_states = []
+    for d in dyn_obs:
+        modes = d.get("modes", [])
+        m0 = modes[0] if modes else {}
+        obs_states.append(np.concatenate([
+            np.asarray(m0.get(key, [0, 0, 0]), dtype=float)
+            for key in ("position", "velocity", "acceleration")
+        ]))
+    x0 = tens(np.concatenate([x0_robot_np] + obs_states)) if obs_states else x0_robot
     # target waypoints relative to the initial EE pose; computed in float64
     # on the host side of the chain so both dtypes see the same target
     q0_64 = torch.as_tensor(x0_robot_np[:nq], dtype=torch.float64)
@@ -503,10 +737,106 @@ def build_problem(config: dict, N: Optional[int] = None, device="cuda",
 
     return UprightProblem(
         ocp=ocp, dims=dims, robot=robot, balance_model=model, dt=dt,
-        x0=x0_robot, xd=xd_robot, target=target, gravity=gravity, config=config,
+        x0=x0, xd=xd_robot, target=target, gravity=gravity, config=config,
         ineq_groups=ineq_groups,
         heal_jump_threshold=float(
             ctrl.get("mpc", {}).get("heal_jump_threshold", 0.2)
         ),
         force_scale=force_scale,
     )
+
+
+class _CollisionRows:
+    """Robot collision spheres x (static spheres | dynamic obstacles | ground).
+
+    Each robot sphere is attached to a named chain frame with a local offset.
+    Rows are sphere-major, and per sphere: the static obstacles, the dynamic
+    obstacles, then the ground half-space z >= 0 where it applies, each row
+    ``distance - (radius_a + radius_b + minimum_distance)``.  Every row is
+    computed at once: one chain sweep, one gather of the sphere centres, one
+    distance expression over all (sphere, obstacle) pairs, one gather of the
+    rows that exist.
+    """
+
+    def __init__(self, ctrl, robot, num_obstacles, min_dist, device, dtype):
+        obs_conf = ctrl.get("obstacles", {})
+        spheres = obs_conf.get("collision_spheres", [])
+        static = obs_conf.get("static_obstacles", [])
+        dyn = obs_conf.get("dynamic", [])
+        ground_conf = obs_conf.get("ground", {})
+        ground = bool(ground_conf.get("enabled", False))
+        ground_links = set(ground_conf.get("links", []))
+
+        def tens(a):
+            return torch.as_tensor(np.asarray(a, dtype=float), dtype=dtype, device=device)
+
+        names_all = robot.chain.joint_names
+        self.chain = robot.chain
+        self.nq = robot.nq
+        self.rx = 3 * robot.nq
+        self.num_obstacles = num_obstacles
+        # the distinct frames the spheres hang on, and each sphere's frame
+        links = []
+        for s in spheres:
+            if s["link"] not in links:
+                links.append(s["link"])
+        self.frame_idx = [names_all.index(link) for link in links]
+        self.sphere_frame = torch.as_tensor(
+            [links.index(s["link"]) for s in spheres], device=device)
+        self.offsets = tens([s.get("offset", [0, 0, 0]) for s in spheres]).reshape(-1, 3)
+        rad_a = np.asarray([float(s["radius"]) for s in spheres])
+        self.static_pos = tens([o["position"] for o in static]).reshape(-1, 3)
+        rad_static = np.asarray([float(o["radius"]) for o in static])
+        rad_dyn = np.asarray([float(d.get("radius", 0.1)) for d in dyn[:num_obstacles]])
+        rad_b = np.concatenate([rad_static, rad_dyn])
+        # (n_spheres, n_static + n_dyn + 1) margins; the last column: ground
+        margin = np.concatenate([
+            rad_a[:, None] + rad_b[None, :] + min_dist, (rad_a + min_dist)[:, None]], axis=1)
+        self.margin = tens(margin)
+        # which entries of the (sphere, column) grid are rows, in row order
+        n_cols = margin.shape[1]
+        keep = []
+        for i, s in enumerate(spheres):
+            keep.extend(i * n_cols + j for j in range(n_cols - 1))
+            if ground and (not ground_links or s["link"] in ground_links):
+                keep.append(i * n_cols + n_cols - 1)
+        self.keep = torch.as_tensor(keep, dtype=torch.long, device=device)
+        self.n_rows = len(keep)
+
+    def __call__(self, x):
+        q = x[..., : self.nq]
+        zero = torch.zeros_like(q)
+        frames = self.chain._propagate(q, zero, zero)
+        lead = q.shape[:-1]
+        R = torch.stack([frames[i].R.expand(lead + (3, 3)) for i in self.frame_idx], dim=-3)
+        p = torch.stack([frames[i].p.expand(lead + (3,)) for i in self.frame_idx], dim=-2)
+        R = R.index_select(-3, self.sphere_frame)  # (..., n_spheres, 3, 3)
+        centres = p.index_select(-2, self.sphere_frame) + matvec(R, self.offsets)
+        others = self.static_pos.expand(lead + tuple(self.static_pos.shape))
+        if self.num_obstacles:
+            dyn = x[..., self.rx :].unflatten(-1, (self.num_obstacles, 9))[..., 0:3]
+            others = torch.cat([others, dyn], dim=-2)
+        dist = torch.linalg.vector_norm(centres.unsqueeze(-2) - others.unsqueeze(-3), dim=-1)
+        grid = torch.cat([dist, centres[..., 2:3]], dim=-1) - self.margin
+        return grid.flatten(-2).index_select(-1, self.keep)
+
+
+def _projectile_closest_time(r, r0, v0, g, iters=10):
+    """Time at which a ballistic trajectory r0 + v0 t + g t^2/2 is closest to
+    point r: Newton iterations on the cubic stationarity condition from
+    t = 0, a fixed iteration count.  Vectors (..., 3); returns (..., 1)."""
+
+    def dot(a, b):
+        return (a * b).sum(-1, keepdim=True)
+
+    dr = r - r0
+    a = dot(g, g)
+    b = 3.0 * dot(v0, g)
+    c = 2.0 * (dot(v0, v0) - dot(dr, g))
+    d = -2.0 * dot(dr, v0)
+    t = torch.zeros_like(d)
+    for _ in range(iters):
+        f = a * t**3 + b * t**2 + c * t + d
+        df = 3 * a * t**2 + 2 * b * t + c
+        t = t - f / torch.where(torch.abs(df) > 1e-9, df, torch.full_like(df, 1e-9))
+    return t

@@ -1,13 +1,16 @@
 """Closed-loop MPC simulation on the port.
 
-Counterpart of ``scripts/mpc_sim.py`` for obstacle-free configs.  Each control
-cycle: measure the joints (with noise when a seed is given), MPC step (replan
-gated at min_policy_update_time), jerk double integration into a velocity
-command, plant step, log.
+Counterpart of ``scripts/mpc_sim.py``.  Each control cycle: measure the joints
+(with noise when a seed is given), append the dynamic obstacles' states to
+the controller's state, MPC step (replan gated at min_policy_update_time),
+jerk double integration into a velocity command, plant step, log.
 
-    python -m upright_tpu_torch.scripts.mpc_sim --config configs/demos/thing_demo.yaml --duration 1.5
+    python -m upright_tpu_torch.scripts.mpc_sim --config configs/ral23/static_obstacles/full_bottle_point1.yaml --duration 1.0
 
 It runs on the card (float32); ``--device cpu`` runs it on the CPU in float64.
+Configs with the projectile path constraint raise ``NotImplementedError``:
+they need the projectile estimator (``ProjectileTracker``), which is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -36,8 +39,12 @@ def run_closed_loop(config, duration=None, ctrl_rate=125.0, log=None, verbose=Fa
     sim_conf = config["simulation"]
     sim = UprightSimulation(sim_conf, device=device, dtype=dtype)
     ctrl = ControllerManager.from_config(config, device=device, dtype=dtype)
-    if ctrl.problem.dims.num_obstacles:
-        raise NotImplementedError("the port's closed loop runs obstacle-free configs only")
+    num_ctrl_obs = ctrl.problem.dims.num_obstacles
+    if num_ctrl_obs and config["controller"].get("projectile_path_constraint", {}).get("enabled"):
+        raise NotImplementedError(
+            "the projectile path constraint needs the projectile estimator "
+            "(ProjectileTracker, runtime/projectile.py), which is not ported yet"
+        )
     generator = None
     if seed is not None:
         generator = torch.Generator(device=sim.device)
@@ -51,8 +58,9 @@ def run_closed_loop(config, duration=None, ctrl_rate=125.0, log=None, verbose=Fa
     nq = sim.robot.nq
     a_state = np.zeros(nq)  # the controller's acceleration state (triple-integrator belief)
 
-    # simulated obstacles the controller does not see (none in the shipped
-    # obstacle-free configs) still advance with the clock
+    # dynamic obstacles: simulated balls whose states the controller reads
+    # directly (sudden/controlled obstacles); the ones it does not model
+    # still advance with the clock
     _, r_ee0 = sim.ee_pose(state)
     dyn_obstacles = build_dynamic_obstacles(sim_conf, ee_position=r_ee0[0])
 
@@ -65,6 +73,10 @@ def run_closed_loop(config, duration=None, ctrl_rate=125.0, log=None, verbose=Fa
         q_meas, v_meas = sim.measure(state, generator=generator)
         v_meas = v_meas[0].cpu().numpy()
         x = np.concatenate([q_meas[0].cpu().numpy(), v_meas, a_state])
+        if num_ctrl_obs:
+            tails = [dyn_obstacles[i].state(t) if i < len(dyn_obstacles) else np.zeros(9)
+                     for i in range(num_ctrl_obs)]
+            x = np.concatenate([x] + tails)
         if np.isnan(x).any():
             raise FloatingPointError(f"NaN in the controller state at t = {t}")
 

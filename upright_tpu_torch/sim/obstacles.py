@@ -3,9 +3,7 @@
 Counterpart of ``upright_tpu/sim/obstacles.py`` (numpy, copied): piecewise
 ballistic "modes" (time, position, velocity, acceleration), evaluated
 analytically; an optional velocity-servo "controlled" mode tracks the nominal
-path.  Supplies the 9-D state the controller appends to x.  Problems with
-obstacles are not ported yet (``build_problem`` raises), so the closed loop
-only steps these.
+path.  Supplies the 9-D state the controller appends to x.
 """
 
 from __future__ import annotations

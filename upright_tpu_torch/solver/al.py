@@ -7,9 +7,9 @@ kernel (``solver/riccati.py``) sees the batch in one launch.  A single
 instance is ``B = 1``.
 
 Each SQP iteration has three phases:
-  - stage linearization: one ``torch.func.jacfwd`` of the stacked
-    [residuals; eq; smooth ineq] rows, vmapped over (instance, stage), with
-    the box rows added analytically;
+  - stage linearization: ``torch.func.jacfwd`` (or ``jacrev``) of the
+    stacked [residuals; eq; smooth ineq] rows, vmapped over (instance,
+    stage), with the box rows added analytically;
   - the Riccati backward pass (the CUDA kernel on the card);
   - the forward rollouts of the fixed line-search candidates, a Python loop
     over stages on (candidate, instance) blocks, then accept/reject and the
@@ -19,10 +19,11 @@ Each SQP iteration has three phases:
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Tuple
 
 import torch
-from torch.func import jacfwd, vmap
+from torch.func import jacfwd, jacrev, vmap
 
 from upright_tpu_torch import check_on_device
 from upright_tpu_torch.solver.ocp import OCP, Solution, SolverState
@@ -106,7 +107,9 @@ def _flatten_lead(lead_ndim, *trees):
     tensors / dicts of tensors into one."""
 
     def flat(t):
-        return t.reshape((-1,) + tuple(t.shape[lead_ndim:]))
+        # the leading size is given, not inferred: a leaf may hold no elements
+        # (the object parameters of a problem without objects)
+        return t.reshape((math.prod(t.shape[:lead_ndim]),) + tuple(t.shape[lead_ndim:]))
 
     return [
         {k: flat(v) for k, v in t.items()} if isinstance(t, dict) else flat(t)
@@ -120,12 +123,14 @@ def _stage_derivatives(ocp: OCP, cfg: ALConfig, x, u, p, lam, mu):
     x: (..., nx), u: (..., nu) with one or more leading dimensions shared by
     every leaf of p, lam and mu.  Returns (grad (..., nz), H (..., nz, nz)).
 
-    One jacfwd of the stacked [residuals; eq; smooth ineq] vector over x and
-    one over u (the constraint families share the kinematic-chain tangents;
-    the u-columns never enter the chain), vmapped over the leading
-    dimensions; the gradient is assembled analytically from the same
-    Jacobian.  State/input limit rows have constant +/-identity Jacobians
-    and contribute index adds on the diagonal instead.
+    The Jacobian of the stacked [residuals; eq; smooth ineq] vector, vmapped
+    over the leading dimensions, by one of three modes (``OCP.x_jac_blocks``,
+    ``OCP.jac_mode``): one jacfwd over x and one over u (the constraint
+    families share the kinematic-chain tangents; the u-columns never enter
+    the chain); one jacfwd per block of x-columns; or one jacrev over (x,
+    u).  The gradient is assembled analytically from the same Jacobian.
+    State/input limit rows have constant +/-identity Jacobians and
+    contribute index adds on the diagonal instead.
     """
     if ocp.stage_residuals is None or ocp.stage_quad_derivs is None:
         raise NotImplementedError(
@@ -154,9 +159,28 @@ def _stage_derivatives(ocp: OCP, cfg: ALConfig, x, u, p, lam, mu):
                 parts.append(s_)
         return torch.cat(parts, dim=-1)
 
-    J_x = vmap(jacfwd(stacked, argnums=0))(x, u, p)
-    J_u = vmap(jacfwd(stacked, argnums=1))(x, u, p)
-    J = torch.cat([J_x, J_u], dim=-1)  # (M, rows, nz)
+    if ocp.x_jac_blocks is not None:
+        # one jacfwd per block of x-columns, the rest of x held constant
+        cols, lo = [], 0
+        for width in ocp.x_jac_blocks:
+            hi = lo + width
+
+            def f_block(xb, x_, u_, p_, lo=lo, hi=hi):
+                return stacked(torch.cat([x_[..., :lo], xb, x_[..., hi:]], dim=-1), u_, p_)
+
+            cols.append(vmap(jacfwd(f_block))(x[:, lo:hi], x, u, p))
+            lo = hi
+        cols.append(vmap(jacfwd(stacked, argnums=1))(x, u, p))
+        J = torch.cat(cols, dim=-1)
+    elif ocp.jac_mode == "rev":
+        def f_z(z_, p_):
+            return stacked(z_[..., :nx], z_[..., nx:], p_)
+
+        J = vmap(jacrev(f_z))(torch.cat([x, u], dim=-1), p)
+    else:
+        J_x = vmap(jacfwd(stacked, argnums=0))(x, u, p)
+        J_u = vmap(jacfwd(stacked, argnums=1))(x, u, p)
+        J = torch.cat([J_x, J_u], dim=-1)  # (M, rows, nz)
 
     def JtJ(Ja, Jb):
         return Ja.transpose(-1, -2) @ Jb

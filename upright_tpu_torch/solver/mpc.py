@@ -226,6 +226,7 @@ class ControllerManager:
         if self.state is None:
             self.warmstart(t0, x)
         nq = self.problem.dims.robot_q
+        rx = self.problem.dims.robot_x
         ts, xs, us = [], [], []
         t = float(t0)
         h = float(timestep)
@@ -235,13 +236,18 @@ class ControllerManager:
             xs.append(x)
             us.append(np.asarray(u))
             # advance the observation by exact integration of the triple
-            # integrator under the returned jerk
-            q, v, a = x[:nq], x[nq : 2 * nq], x[2 * nq : 3 * nq]
+            # integrator under the returned jerk, and of each obstacle's
+            # constant acceleration
+            q, v, a = x[:nq], x[nq : 2 * nq], x[2 * nq : rx]
             j = np.asarray(u, dtype=float)[:nq]
-            x = np.concatenate([
+            parts = [
                 q + h * v + 0.5 * h**2 * a + h**3 / 6.0 * j,
                 v + h * a + 0.5 * h**2 * j,
                 a + h * j,
-            ])
+            ]
+            for i in range(self.problem.dims.num_obstacles):
+                ro, vo, ao = (x[rx + 9 * i + k : rx + 9 * i + k + 3] for k in (0, 3, 6))
+                parts += [ro + h * vo + 0.5 * h**2 * ao, vo + h * ao, ao]
+            x = np.concatenate(parts)
             t += h
         return StateInputTrajectory(ts=np.asarray(ts), xs=np.asarray(xs), us=np.asarray(us))

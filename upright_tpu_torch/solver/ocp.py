@@ -14,7 +14,7 @@ exact gradients and Gauss-Newton Hessians J^T W J.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 
@@ -85,6 +85,17 @@ class OCP:
     # adds instead of through the traced Jacobian.
     ineq_smooth: Optional[Callable] = None  # (x, u, p_k) -> (..., n_ineq - n_box)
     ineq_box: Optional[IneqBoxRows] = None
+
+    # Column blocking of the stage Jacobian w.r.t. x: each block's columns
+    # come from their own jacfwd with the other blocks held as constants, so
+    # tangents only flow through what depends on that block (for x = [q, v,
+    # a, obstacles] the v- and a-columns skip the rotation-chain JVPs).
+    # Block sizes sum to nx; None is one wide jacfwd over x.
+    x_jac_blocks: Optional[Tuple[int, ...]] = None
+    # Differentiation mode of the stacked stage rows when x_jac_blocks is
+    # None: "fwd" (one jacfwd over x and one over u) or "rev" (one jacrev
+    # over z = (x, u), one VJP per stacked row).
+    jac_mode: str = "fwd"
 
     device: Any = None
     dtype: Any = None

@@ -1,8 +1,9 @@
-"""Inputs for the Riccati backward pass, made with numpy from a seed.
+"""Inputs for the Riccati backward pass: made with numpy from a seed, or
+captured from a solve of a shipped configuration.
 
 The one place the kernel's tests, ``chip_smoke.py`` and the timing tools take
 their stage data from, so that a number measured by one can be reproduced by
-another.  Everything is float64; callers cast.
+another.  The generators return float64 numpy; callers cast.
 """
 
 from __future__ import annotations
@@ -62,3 +63,42 @@ def fallback_batch(Bt=6, N=3, nx=6, nu=26, seed=7):
         B[b, 1] = 0.0
         H[b, 1] = Hs
     return A, B, d, g, H, gf, Hf
+
+
+def solver_stage_data(config_path, batch, N=None, iterations=2, seed=0, device="cuda",
+                      dtype=None):
+    """The stage data the solver hands the Riccati backward pass, from a cold
+    solve of a shipped configuration.
+
+    Builds ``configs/<config_path>`` on ``device`` (float32 unless ``dtype``
+    says otherwise; N from the config unless given), perturbs x0 by 0.01 from
+    numpy ``seed`` for each of ``batch`` instances and runs ``iterations``
+    AL-SQP iterations from the cold start, with the plain backward pass, so
+    that capturing launches no kernel.  Returns the (A, B, d, grads, hess,
+    gf, Hf) of the last iteration, as the solver passes them.
+    """
+    import torch
+
+    import upright_tpu_torch.config as cfg
+    from upright_tpu_torch.ocp.problem import build_problem
+    from upright_tpu_torch.parallel.batch import batch_warm_starts, broadcast_params
+    from upright_tpu_torch.solver.al import ALConfig, solve
+    from upright_tpu_torch.solver.riccati import riccati_backward_plain
+
+    dtype = torch.float32 if dtype is None else dtype
+    path = cfg.resolve_package_path({"package": "configs", "path": config_path})
+    prob = build_problem(cfg.load_config(path), N=N, device=device, dtype=dtype)
+    rng = np.random.default_rng(seed)
+    x0 = prob.x0.cpu().numpy()[None, :] + 0.01 * rng.standard_normal((batch, prob.ocp.nx))
+    x0 = torch.as_tensor(x0, dtype=dtype, device=prob.ocp.device)
+    captured = []
+
+    def capture(*args, **kw):
+        captured[:] = [a.clone() for a in args]
+        return riccati_backward_plain(*args, **kw)
+
+    solve(prob.ocp, ALConfig(iterations=iterations, rho_eq=10.0, rho_ineq=10.0),
+          broadcast_params(prob.stage_params(0.0), batch), x0,
+          batch_warm_starts(prob.ocp, x0, device=device, dtype=dtype),
+          device=device, dtype=dtype, backward=capture)
+    return tuple(captured)
