@@ -29,8 +29,8 @@ holds every hand-written kernel against its plain PyTorch version:
      plain version, float32 against the plain version run in float32 on the
      same inputs (the witness), and a control that the float32 limits reject;
   8. the closed loop: thing_demo at full width on the device loop
-     (runtime/device_loop.py), a 12-iteration cold solve, then 150 ticks at
-     100 Hz (1.5 s) through both kernels: costs finite, the bottle within
+     (runtime/device_loop.py), a 12-iteration cold solve, then 100 ticks at
+     100 Hz (1.0 s) through both kernels: costs finite, the bottle within
      0.03 m of its place; then 10 ticks of the host loop (ControllerManager +
      UprightSimulation) against the device loop from the same start;
   9. P1's times (thing_demo at batch 1 and 512, box_arch and blue_cups at
@@ -46,16 +46,33 @@ holds every hand-written kernel against its plain PyTorch version:
      ms per launch and of one eager call, bound, the torch.linalg loop;
      float64 at 27/93 must be refused (shared memory);
  12. full_bottle_point1 in the closed loop on the device loop: a 12-iteration
-     cold solve, 100 ticks at 100 Hz, the bottle within 0.03 m and the last
+     cold solve, 50 ticks at 100 Hz (phase 13 runs it 100 ticks in its
+     group), the bottle within 0.03 m and the last
      plan's collision rows above -0.05; host ms per tick, replan and plant
-     apart; then one JSON line describing each kernel (time, bound,
-     launches), the card's name and power limit, and the final JSON line.
+     apart;
+ 13. the closed loop batched over targets: thing_demo at B = 1, 8 and 64
+     (the demo's waypoint offset by up to 0.2 m), one batched cold solve, 20
+     ticks each, K1 and P1 launched once per tick for the whole batch, ms
+     per tick and instance-ticks/s; B = 3 in float64 against three batch-1
+     runs (1e-10); the ral23 group full_bottle_point{1,2,3} as one B = 3
+     loop of 100 ticks (bottles within 0.03 m, collision rows above -0.05);
+ 14. the projectile closed loop (demos/thing_projectile_demo.yaml, 2.0 s
+     through scripts/mpc_sim.py): the tracker's phases, the ball's closest
+     approach, the bottle within 0.03 m;
+ 15. the asynchronous runtime on ur10_demo (scripts/runtime_demo.py: the
+     planner thread on its own stream, the native executor at 125 wall Hz,
+     the plant on the card) at time scale 0.1: 0 overruns, policy switches,
+     the bottle's displacement printed; and 1.0 s of the launch
+     stack with the planner process on the card; then one JSON line
+     describing each kernel (time, bound, launches), the card's name and
+     power limit, and the final JSON line.
 
 With ``--breakdown`` it also times the phases of one solve (linearization,
 Riccati kernel, line search) between synchronisations and traces three solves
 with torch.profiler, and times the stage derivatives in each Jacobian mode
 (wide, blocked, rev), on thing_demo and full_bottle_point1 at batch 512 and
-batch 1: the numbers of PERF.md's "where the time goes".
+batch 1, and the phases of one replan of phase 14's projectile problem: the
+numbers of PERF.md's "where the time goes".
 
 It needs a CUDA device and the repository around it: it exits non-zero and
 prints no result without either.  Any failed check raises, so the exit code
@@ -87,7 +104,13 @@ REPLAN_TICKS = 40
 REPLAN_WARMUP = 5
 
 
+T_START = time.perf_counter()
+
+
 def log(msg):
+    """Print a line; a phase's heading gets the seconds since the start."""
+    if msg.startswith("== "):
+        msg = f"{msg} [{time.perf_counter() - T_START:.1f} s]"
     print(msg, flush=True)
 
 
@@ -137,13 +160,17 @@ def main():
 
     import upright_tpu_torch.config as cfg  # the package pins full-float32 products
     from upright_tpu_torch import _build
+    from upright_tpu_torch.core.logging import DataLogger
+    from upright_tpu_torch.core.math import quat_to_rot, rot_to_quat
     from upright_tpu_torch.ocp.problem import build_problem
+    from upright_tpu_torch.ocp.reference import TargetTrajectory, stack_targets
     from upright_tpu_torch.parallel.batch import (
         batch_solve_fn,
         batch_warm_starts,
         broadcast_params,
     )
     from upright_tpu_torch.runtime.device_loop import build_device_loop
+    from upright_tpu_torch.scripts import launch_stack, mpc_sim, runtime_demo
     from upright_tpu_torch.sim import contact
     from upright_tpu_torch.sim.simulation import UprightSimulation
     from upright_tpu_torch.solver import al, riccati
@@ -639,7 +666,7 @@ def main():
               f"{label}: latched instances {latched} (float32 and float64 alike)")
 
     # -- 8. the closed loop ----------------------------------------------------------
-    LOOP_TICKS, HOST_TICKS, RATE = 150, 10, 100.0
+    LOOP_TICKS, HOST_TICKS, RATE = 100, 10, 100.0
     log(f"== 8. closed loop on the card: thing_demo, {RATE:.0f} Hz, {LOOP_TICKS} ticks")
     settings = MPCSettings.from_config(config["controller"])
     loop_cfg = settings.al_config()
@@ -984,7 +1011,7 @@ def main():
     results["solver_widths"] = solver_widths
 
     # -- 12. the obstacle course in the closed loop ----------------------------------
-    FB_TICKS = 100
+    FB_TICKS = 50
     log(f"== 12. closed loop on the card: full_bottle_point1, {RATE:.0f} Hz, {FB_TICKS} ticks")
     fb_loop_cfg = MPCSettings.from_config(fb_config["controller"]).al_config()
     sim_fb = UprightSimulation(fb_config["simulation"])
@@ -1028,6 +1055,233 @@ def main():
                    fb_loop_bottle_displacement=float(disp_fb.max()),
                    fb_loop_min_collision_row=coll_fb, fb_loop_tick_ms=fb_tick_host_ms,
                    fb_loop_plant_ms=fb_plant_ms, fb_loop_replan_ms=fb_tick_host_ms - fb_plant_ms)
+
+    # -- 13. the closed loop batched over targets -------------------------------------
+    BATCHES, BATCH_TICKS = (1, 8, 64), 20
+    log(f"== 13. batched closed loop on the card: thing_demo, B = {BATCHES} targets, "
+        f"{RATE:.0f} Hz, {BATCH_TICKS} ticks each")
+    # each instance's waypoint: the demo's, offset by up to 0.2 m (numpy seed 0)
+    offsets = np.random.default_rng(0).uniform(-0.2, 0.2, (max(BATCHES), 3))
+
+    def offset_targets(problem, offs):
+        """One target per offset: the problem's, moved by it."""
+        targets = []
+        for off in offs:
+            poses = problem.target.poses.clone()
+            poses[:, :3] += torch.as_tensor(off, dtype=poses.dtype, device=poses.device)
+            targets.append(TargetTrajectory(times=problem.target.times, poses=poses))
+        return targets
+
+    batched_loop = {}
+    launches_batched_loop = {}
+    for Bn in BATCHES:
+        stack = stack_targets(offset_targets(prob, offsets[:Bn]))
+        t0 = time.perf_counter()
+        carry_b = init_carry(target=stack)  # one batched 12-iteration cold solve
+        torch.cuda.synchronize()
+        cold_b = time.perf_counter() - t0
+        riccati.launch_count = 0
+        contact.launch_count = 0
+        t0 = time.perf_counter()
+        carry_b, metrics_b = run(carry_b, BATCH_TICKS, target=stack)
+        torch.cuda.synchronize()
+        loop_b = time.perf_counter() - t0
+        k1_b, p1_b = riccati.launch_count, contact.launch_count
+        launches_batched_loop[Bn] = (k1_b, p1_b)
+        check(k1_b == BATCH_TICKS * loop_cfg.iterations and p1_b == BATCH_TICKS,
+              f"B = {Bn}: K1 ({k1_b}) and P1 ({p1_b}) launched once per tick for the whole batch")
+        cost_b = metrics_b.cost.cpu()
+        check(cost_b.shape == (BATCH_TICKS, Bn) and bool(torch.isfinite(cost_b).all())
+              and bool(torch.isfinite(metrics_b.r_ew_w).all()),
+              f"B = {Bn}: costs and EE positions finite, one column per instance")
+        disp_b = sim_l.object_displacements(carry_b.sim)
+        ms_tick = loop_b * 1e3 / BATCH_TICKS
+        batched_loop[Bn] = {"ms_per_tick": ms_tick, "instance_ticks_per_s": Bn * BATCH_TICKS / loop_b,
+                            "cold_solve_s": cold_b, "bottle_displacement_max": float(disp_b.max())}
+        log(f"  B = {Bn}: {ms_tick:.2f} ms per tick, {Bn * BATCH_TICKS / loop_b:.1f} instance-ticks/s "
+            f"(cold solve {cold_b:.2f} s); largest bottle displacement {float(disp_b.max()):.2e} m")
+    check(all(v["bottle_displacement_max"] < 0.03 for v in batched_loop.values()),
+          "every bottle of every batch within 0.03 m of its place")
+    log(f"  ms per tick at B = 64 / B = 1: "
+        f"{batched_loop[64]['ms_per_tick'] / batched_loop[1]['ms_per_tick']:.2f}; instance-ticks/s "
+        f"{batched_loop[64]['instance_ticks_per_s'] / batched_loop[1]['instance_ticks_per_s']:.1f}x")
+
+    # B = 3 in float64 against three batch-1 runs: the same arithmetic per
+    # instance (K1 and P1 run one block per instance), so 1e-10 absolute (the
+    # CPU test's tolerance) leaves room for cuBLAS's batch-dependent orders
+    EQUAL_TICKS, EQUAL_TOL = 5, 1e-10
+    prob64 = build_problem(config, device="cuda", dtype=torch.float64)
+    sim64 = UprightSimulation(config["simulation"], device="cuda", dtype=torch.float64)
+    init64, run64 = build_device_loop(prob64, sim64, al_cfg=loop_cfg, ctrl_rate=RATE)
+    singles = offset_targets(prob64, offsets[:3])
+    stack64 = stack_targets(singles)
+    carry64, _ = run64(init64(target=stack64), EQUAL_TICKS, target=stack64)
+    equal_err = 0.0
+    for b, single in enumerate(singles):
+        c1, _ = run64(init64(target=single), EQUAL_TICKS, target=single)
+        for a_, b_ in ((carry64.sim.q[b], c1.sim.q[0]), (carry64.solver.X[b], c1.solver.X[0]),
+                       (carry64.a_state[b], c1.a_state[0]),
+                       (carry64.sim.objects.r[b], c1.sim.objects.r[0])):
+            equal_err = max(equal_err, float((a_ - b_).abs().max()))
+    torch.cuda.synchronize()
+    log(f"  float64, B = 3 against three batch-1 runs over {EQUAL_TICKS} ticks: max |diff| "
+        f"{equal_err:.2e} (q, X, a_state, bottle r)")
+    check(equal_err <= EQUAL_TOL, f"the batch equals the batch-1 runs within {EQUAL_TOL}")
+    results.update(batched_loop=batched_loop, batched_loop_float64_err=equal_err)
+
+    # the ral23 group of scripts/ral23_sweep.py: full_bottle_point{1,2,3} as one loop
+    GROUP_TICKS = 100
+    group_paths = [f"ral23/static_obstacles/full_bottle_point{i}.yaml" for i in (1, 2, 3)]
+    log(f"  the group {group_paths[0][:-11]}point{{1,2,3}}: one B = 3 loop of {GROUP_TICKS} ticks")
+    nq_fb = fb.dims.robot_q
+    R0, r0 = fb.robot.ee_pose(fb.x0[:nq_fb])
+    q0 = rot_to_quat(R0)
+    group = stack_targets([
+        TargetTrajectory.from_waypoints(
+            cfg.load_config(cfg.resolve_package_path({"package": "configs", "path": p}))
+            ["controller"].get("waypoints", [{"time": 0.0}]), r0.cpu().numpy(), q0.cpu().numpy())
+        for p in group_paths])
+    t0 = time.perf_counter()
+    carry_g = init_fb(target=group)
+    torch.cuda.synchronize()
+    group_cold_s = time.perf_counter() - t0
+    riccati.launch_count = 0
+    contact.launch_count = 0
+    t0 = time.perf_counter()
+    carry_g, metrics_g = run_fb(carry_g, GROUP_TICKS, target=group)
+    torch.cuda.synchronize()
+    group_s = time.perf_counter() - t0
+    launches_group = (riccati.launch_count, contact.launch_count)
+    check(launches_group == (GROUP_TICKS * fb_loop_cfg.iterations, GROUP_TICKS),
+          f"K1 and P1 launched once per tick for the group ({launches_group})")
+    disp_g = sim_fb.object_displacements(carry_g.sim)[:, 0]
+    t_last_g = float(carry_g.t) - 1.0 / RATE
+    coll_g = [min_collision_row(fb, carry_g.solver.X[b : b + 1], carry_g.solver.U[b : b + 1],
+                                t_last_g) for b in range(3)]
+    r_g = metrics_g.r_ew_w[-1].cpu()
+    ee_err_g = [float(torch.linalg.vector_norm(r_g[b] - group.poses[b, 0, :3].cpu()))
+                for b in range(3)]
+    log(f"  {GROUP_TICKS} ticks in {group_s:.2f} s ({group_s * 1e3 / GROUP_TICKS:.2f} ms per tick for "
+        f"3 loops; cold solve {group_cold_s:.2f} s); bottle displacement "
+        + ", ".join(f"{d:.2e}" for d in disp_g) + " m; smallest collision row of the last plans "
+        + ", ".join(f"{c:.4f}" for c in coll_g) + " m; EE to the waypoints "
+        + ", ".join(f"{e:.4f}" for e in ee_err_g) + " m")
+    check(bool(torch.isfinite(metrics_g.cost).all()), "group: costs finite")
+    check(bool(np.isfinite(disp_g).all() and (disp_g < 0.03).all()),
+          "group: every bottle within 0.03 m of its place")
+    check(min(coll_g) > -0.05, "group: every last plan keeps its collision rows above -0.05")
+    results.update(group_ms_per_tick=group_s * 1e3 / GROUP_TICKS, group_cold_solve_s=group_cold_s,
+                   group_bottle_displacement=disp_g.tolist(), group_min_collision_row=coll_g,
+                   group_ee_err=ee_err_g)
+
+    # -- 14. the projectile closed loop ------------------------------------------
+    PROJ_PATH, PROJ_S = "demos/thing_projectile_demo.yaml", 2.0
+    log(f"== 14. projectile closed loop on the card: {PROJ_PATH}, {PROJ_S} s at 125 Hz "
+        "(scripts/mpc_sim.py run_closed_loop; the ball is thrown at 1.0 s)")
+    proj_config = cfg.load_config(cfg.resolve_package_path({"package": "configs", "path": PROJ_PATH}))
+    proj_log = DataLogger(timestep=0.0)  # every tick
+    riccati.launch_count = 0
+    contact.launch_count = 0
+    t0 = time.perf_counter()
+    sim_p, state_p, ctrl_p, proj_log = mpc_sim.run_closed_loop(proj_config, duration=PROJ_S,
+                                                               log=proj_log)
+    torch.cuda.synchronize()
+    proj_s = time.perf_counter() - t0
+    launches_proj = (riccati.launch_count, contact.launch_count)
+    data_p = proj_log.as_arrays()
+    n_ticks_p = len(data_p["t"])
+    n_solves_p = len(ctrl_p.replanning_durations)
+    check(ctrl_p.problem.dims.num_obstacles == 1 and (ctrl_p.problem.ocp.nx, ctrl_p.problem.ocp.nu)
+          == (36, 13), "thing_projectile_demo: one 9-state obstacle, nx 36, nu 13")
+    check(launches_proj == (ctrl_p.settings.warmstart_iterations
+                            + (n_solves_p - 1) * ctrl_p.settings.iterations, n_ticks_p),
+          f"K1 launched once per SQP iteration of {n_solves_p} solves, P1 once per tick "
+          f"({launches_proj})")
+    phases_p = [int(p) for p in data_p["projectile_phase"]]
+    sequence = [phases_p[0]] + [p for a_, p in zip(phases_p, phases_p[1:]) if p != a_]
+    names = {0: "PREFLIGHT", 1: "FLIGHT", 2: "POSTFLIGHT"}
+    # the ball's distance from the centre of the balanced object's collision
+    # sphere (on the EE frame, 0.07 m along its z: configs/obstacles/projectile.yaml)
+    R_p = quat_to_rot(torch.as_tensor(data_p["Q_we"], dtype=torch.float64)).numpy()
+    sphere = data_p["r_ew_w"] + R_p @ np.array([0.0, 0.0, 0.07])
+    ball_dist = np.linalg.norm(data_p["projectile_position"] - sphere, axis=-1)
+    disp_p = sim_p.object_displacements(state_p)[0]
+    replans_p = np.asarray(ctrl_p.replanning_durations[1:]) * 1e3
+    log(f"  {n_ticks_p} ticks in {proj_s:.2f} s ({proj_s * 1e3 / n_ticks_p:.2f} ms per tick with the "
+        f"per-tick log; {replans_p.size} replans, median {np.median(replans_p):.2f} ms, thing_demo in "
+        f"phase 5 {replan_ms:.2f} ms); tracker phases {' -> '.join(names[p] for p in sequence)} "
+        f"(flight from t = {data_p['t'][phases_p.index(1)] if 1 in phases_p else float('nan'):.3f} s); "
+        f"smallest ball-to-sphere-centre distance {ball_dist.min():.4f} m; bottle displacement "
+        f"{float(disp_p.max()):.2e} m")
+    check(sequence[0] == 0 and 1 in sequence, "the tracker leaves its pre-flight phase")
+    check(bool(np.isfinite(data_p["cost"]).all()), "costs finite")
+    check(bool(np.isfinite(disp_p).all() and (disp_p < 0.03).all()),
+          "the bottle stays within 0.03 m of its place on the tray")
+    results.update(projectile_ticks=n_ticks_p, projectile_s=proj_s,
+                   projectile_ms_per_tick=proj_s * 1e3 / n_ticks_p,
+                   projectile_replan_ms_median=float(np.median(replans_p)),
+                   projectile_phases=[names[p] for p in sequence],
+                   projectile_min_ball_distance=float(ball_dist.min()),
+                   projectile_bottle_displacement=float(disp_p.max()))
+
+    # -- 15. the asynchronous runtime ----------------------------------------------
+    # slow motion at 0.1: the plant keeps pace beside the planner thread
+    RUNTIME_PATH, RUNTIME_S, RUNTIME_SCALE = "demos/ur10_demo.yaml", 2.0, 0.1
+    log(f"== 15. runtime demo on the card: {RUNTIME_PATH}, {RUNTIME_S} s of simulated time at time "
+        f"scale {RUNTIME_SCALE} (AsyncPlanner on its own stream, NativeExecutor at 125 wall Hz, "
+        "the plant on the card)")
+    rt_path = cfg.resolve_package_path({"package": "configs", "path": RUNTIME_PATH})
+    rt_config = cfg.load_config(rt_path)
+    riccati.launch_count = 0
+    contact.launch_count = 0
+    out = runtime_demo.run_demo(rt_config, duration=RUNTIME_S, time_scale=RUNTIME_SCALE)
+    stats, rp = out["executor"], out["replan_s"] * 1e3
+    runtime = {
+        "time_scale": RUNTIME_SCALE, "ticks": stats["ticks"], "overruns": stats["overruns"],
+        "policy_switches": stats["policy_switches"],
+        "max_tick_ms": stats["max_tick_seconds"] * 1e3, "replans": int(rp.size),
+        "replan_ms_p99": float(np.percentile(rp, 99)), "replan_ms_median": float(np.median(rp)),
+        "plant_busy_ms_median": float(np.median(out["busy_s"]) * 1e3),
+        "plant_busy_ms_p99": float(np.percentile(out["busy_s"], 99) * 1e3),
+        "behind_ms_max": float(out["behind_s"].max() * 1e3),
+        "behind_ms_end": float(out["behind_s"][-1] * 1e3), "wall_s": out["wall_s"],
+        "ee_error": out["ee_error"],
+        "bottle_displacement": float(out["object_displacement"].max()),
+        "launches": (riccati.launch_count, contact.launch_count),
+    }
+    r = runtime
+    log(f"  executor {r['ticks']} ticks, {r['overruns']} overruns, {r['policy_switches']} policy "
+        f"switches, max tick {r['max_tick_ms']:.3f} ms; planner {r['replans']} replans, median "
+        f"{r['replan_ms_median']:.2f} ms, p99 {r['replan_ms_p99']:.2f} ms; the plant loop busy "
+        f"{r['plant_busy_ms_median']:.2f} ms a tick (p99 {r['plant_busy_ms_p99']:.2f}), behind the "
+        f"scaled wall clock by at most {r['behind_ms_max']:.1f} ms ({r['behind_ms_end']:.1f} at the "
+        f"end, {r['wall_s']:.1f} s of wall time); EE error {r['ee_error']:.4f} m, bottle "
+        f"displacement {r['bottle_displacement']:.2e} m; K1 / P1 launches {r['launches']}")
+    check(r["launches"][0] > 0 and r["launches"][1] > 0,
+          "the planner thread launched K1 and the plant P1")
+    # The bottle's displacement is printed and not held to a bound.  On this
+    # schedule (a replan of about 0.25 s, a plant tick of about 25 ms, time
+    # scale 0.1) the JAX package's own planner and plant drop the bottle as
+    # the port's do: tests/test_torch_async_runtime.py replays the demo on a
+    # virtual wall clock through both packages and finds the same fall.
+    check(r["overruns"] == 0 and r["policy_switches"] > 0
+          and np.isfinite(r["ee_error"]) and np.isfinite(r["bottle_displacement"]),
+          "0 overruns, policy switches, the robot and the bottle finite")
+    check(r["behind_ms_max"] < 1e3 * RUNTIME_S / RUNTIME_SCALE / 10,
+          "the plant loop kept pace with the scaled wall clock (within a tenth of the run)")
+    stack_out = launch_stack.run_stack(rt_path, duration=1.0, time_scale=RUNTIME_SCALE)
+    log(f"  launch stack (PlannerNode on the card, 1.0 s at time scale {RUNTIME_SCALE}): ready after "
+        f"{stack_out['startup_s']:.2f} s (the child's first two solves), {stack_out['switches']} "
+        f"policies after the first; executor {stack_out['executor']['ticks']} ticks, "
+        f"{stack_out['executor']['overruns']} overruns; bottle displacement "
+        f"{float(stack_out['object_displacement'].max()):.2e} m")
+    check(stack_out["startup_s"] is not None and stack_out["first_policy"] is not None
+          and stack_out["planner_alive"],
+          "the planner process sent 'ready' and a policy, and ran to the end")
+    results.update(runtime_demo=runtime,
+                   launch_stack={"startup_s": stack_out["startup_s"],
+                                 "switches": stack_out["switches"],
+                                 "executor": stack_out["executor"]})
 
     # -- optional: where one solve's time goes ---------------------------------
     def phase_breakdown(label, ocp, p, x0, st):
@@ -1142,7 +1396,7 @@ def main():
         return out
 
     if args.breakdown:
-        log("== 13. breakdown of one solve (optional)")
+        log("== 16. breakdown of one solve (optional)")
         # the Jacobian modes before the profiler trace and in turns, so that
         # neither what ran before nor the order favours a mode
         log("  the three Jacobian modes of the stage derivatives (OCP.x_jac_blocks, jac_mode)")
@@ -1164,6 +1418,10 @@ def main():
             f"full_bottle_point1, batch {BATCH}", fb_ocp, fb_params, fb_x0s, fb_prev_state)
         results["breakdown_full_bottle_batch1"] = phase_breakdown(
             "full_bottle_point1, batch 1", fb_ocp, fb_params1, fb_obs[-1:].clone(), fb_state)
+        # phase 14's last replan: the projectile problem (36/13, one dynamic obstacle)
+        results["breakdown_projectile_batch1"] = phase_breakdown(
+            "thing_projectile_demo, batch 1", ctrl_p.problem.ocp,
+            ctrl_p._params(ctrl_p.last_plan_time), ctrl_p.state.X[:, 0].clone(), ctrl_p.state)
 
     def t_ms(label, key="ms"):
         return round(kernel_times[label][key], 6)
@@ -1219,6 +1477,12 @@ def main():
                 "launches_full_bottle_batched_path": launches_fb,
                 "launches_full_bottle_replan_path": launches_fb_replan,
                 "launches_full_bottle_closed_loop": launches_fb_loop_k1,
+                # phases 13-15: one launch per SQP iteration of a tick for the
+                # whole batch; the projectile loop's solves; the planner thread
+                "launches_batched_loop": {f"B{b}": k for b, (k, _) in launches_batched_loop.items()},
+                "launches_group_loop": launches_group[0],
+                "launches_projectile_loop": launches_proj[0],
+                "launches_runtime_demo": runtime["launches"][0],
             },
             {
                 "name": "plant_substeps",
@@ -1242,6 +1506,10 @@ def main():
                 "max_abs_err_float64": plant_err64,
                 "launches_per_tick": launches_loop_p1 / LOOP_TICKS,
                 "launches_full_bottle_closed_loop": launches_fb_loop_p1,
+                "launches_batched_loop": {f"B{b}": p for b, (_, p) in launches_batched_loop.items()},
+                "launches_group_loop": launches_group[1],
+                "launches_projectile_loop": launches_proj[1],
+                "launches_runtime_demo": runtime["launches"][1],
             },
         ]
     }
@@ -1257,6 +1525,9 @@ def main():
     log(f"solves_per_s={solves_per_s:.1f} replan_ms={replan_ms:.3f} "
         f"loop_tick_ms={tick_ms:.2f} fb_solves_per_s={fb_solves_per_s:.1f} "
         f"fb_replan_ms={fb_replan_ms:.3f} fb_loop_tick_ms={fb_tick_host_ms:.2f} "
+        f"batched_loop_ms_per_tick={'/'.join(f'{v['ms_per_tick']:.2f}' for v in batched_loop.values())} "
+        f"projectile_ms_per_tick={proj_s * 1e3 / n_ticks_p:.2f} "
+        f"runtime_replan_p99_ms={runtime['replan_ms_p99']:.2f} "
         f"total_s={time.perf_counter() - t_start:.1f}")
     print(json.dumps(kernels), flush=True)
     print(card_line, flush=True)

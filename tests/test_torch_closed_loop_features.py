@@ -4,7 +4,7 @@ float64 on the CPU:
 - the closed-loop script on ral23/static_obstacles/full_bottle_point1.yaml
   logs collision rows, cones and limits equal to the JAX problem's at the
   same (x, u, t), feeds a sudden obstacle's state into the tail of x, and
-  refuses projectile configs;
+  runs the projectile tracker as the JAX script does;
 - the device loop equals the port's host loop on full_bottle_point1, tick
   for tick.
 
@@ -15,6 +15,8 @@ The slow tests port the JAX package's closed-loop checks of obstacle
 avoidance (tests/test_obstacles.py) and of a frictional box
 (tests/test_frictional.py) at the configs' own settings.
 """
+
+import copy
 
 import numpy as np
 import pytest
@@ -86,10 +88,61 @@ def test_closed_loop_feeds_sudden_obstacle_state():
                                    rtol=0, atol=1e-12)
 
 
-def test_closed_loop_refuses_projectile_configs():
+class NoLog(DataLogger):
+    """A logger that takes no sample: the loops skip their logging step."""
+
+    def ready(self, t):
+        return False
+
+
+def test_projectile_closed_loop_matches_reference(monkeypatch):
+    """run_closed_loop on ral23/projectile/projectile_head_on.yaml against
+    the JAX package's scripts/mpc_sim.py, with the throw moved from 1.0 s to
+    0.05 s on both sides so that 16 ticks at 125 Hz cover it: the tracker's
+    estimate and flag every tick (the same numpy on both sides, 1e-10), the
+    activation flag of the target the controller ends with (set when the
+    tracker enters its flight phase), the joints (1e-8) and the plan
+    (1e-7)."""
+    from pathlib import Path
+
+    from upright_tpu.runtime import projectile as jproj
+    from upright_tpu_torch.runtime import projectile as tproj
+    from upright_tpu_torch.scripts import mpc_sim as tsim
+
+    monkeypatch.syspath_prepend(str(Path(__file__).resolve().parents[1] / "scripts"))
+    import mpc_sim as jsim
+
     config = load("ral23/projectile/projectile_head_on.yaml", horizon=0.5)
-    with pytest.raises(NotImplementedError, match="ProjectileTracker"):
-        run_closed_loop(config, duration=0.01, **CPU64)
+    config["simulation"]["dynamic_obstacles"]["obstacles"][0]["modes"][0]["time"] = 0.05
+    ticks = 16
+    runs = {}
+    for name, module, base, run in (("port", tsim, tproj.ProjectileTracker,
+                                     lambda c: run_closed_loop(c, ticks / 125.0, log=NoLog(), **CPU64)),
+                                    ("jax", jproj, jproj.ProjectileTracker,
+                                     lambda c: jsim.run_closed_loop(c, ticks / 125.0, log=NoLog()))):
+        seen = []
+
+        class Recording(base):
+            def update(self, r_measured=None):
+                out = super().update(r_measured)
+                seen.append((out[0].copy(), out[1], self.phase.value))
+                return out
+
+        monkeypatch.setattr(module, "ProjectileTracker", Recording)
+        sim, state, ctrl, _ = run(copy.deepcopy(config))
+        runs[name] = (seen, np.asarray(state.q).reshape(-1), np.asarray(ctrl.target.poses)[:, 7],
+                      np.asarray(ctrl.state.X).reshape(-1, ctrl.problem.ocp.nx))
+    (seen, q, flag, X), (jseen, jq, jflag, jX) = runs["port"], runs["jax"]
+    assert len(seen) == len(jseen) == ticks
+    for (obs, s, phase), (jobs, js, jphase) in zip(seen, jseen):
+        np.testing.assert_allclose(obs, jobs, rtol=0, atol=1e-10)
+        assert (s, phase) == (js, jphase)
+    phases = [p for _, _, p in seen]
+    assert phases[0] == 0 and phases[-1] == 1, phases  # preflight, then flight
+    np.testing.assert_array_equal(flag, jflag)
+    assert (flag == 1.0).all()
+    np.testing.assert_allclose(q, jq, rtol=0, atol=1e-8)
+    np.testing.assert_allclose(X, jX, rtol=0, atol=1e-7)
 
 
 def test_device_loop_matches_host_loop_on_obstacle_course():

@@ -38,7 +38,9 @@ def port_modules():
 def test_importing_the_port_pulls_in_no_jax():
     names = port_modules()
     for module in ("solver.riccati", "sim.contact", "sim.simulation", "solver.mpc",
-                   "runtime.device_loop", "scripts.mpc_sim", "core.logging"):
+                   "runtime.device_loop", "scripts.mpc_sim", "core.logging", "runtime.estimator",
+                   "runtime.projectile", "runtime.safety", "runtime.tracker", "runtime.native",
+                   "runtime.launch", "scripts.runtime_demo", "scripts.launch_stack"):
         assert f"upright_tpu_torch.{module}" in names
     assert len(names) >= 30
     code = (
@@ -154,9 +156,10 @@ def test_convert_roundtrips():
 
 
 def test_closed_loop_entry_points_default_to_the_card():
-    """The plant, the manager, the device loop (through its problem) and the
-    closed-loop script ask for the card unless given device='cpu', and raise
-    without one."""
+    """The plant, the manager, the device loop (through its problem), the
+    closed-loop script and the runtime (planner thread and process, the
+    runtime demo and the launch stack) ask for the card unless given
+    device='cpu', and raise without one."""
     if has_card():
         pytest.skip("this machine has a card: the default device exists")
     from upright_tpu_torch.runtime.device_loop import build_device_loop
@@ -173,6 +176,22 @@ def test_closed_loop_entry_points_default_to_the_card():
         run_closed_loop(conf, duration=0.01)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_problem(conf, N=3)
+    # the runtime: the planner thread's manager, the planner process (which
+    # raises before it spawns), and both runtime scripts
+    from upright_tpu_torch.runtime.launch import PlannerNode
+    from upright_tpu_torch.runtime.tracker import AsyncPlanner
+    from upright_tpu_torch.scripts.launch_stack import run_stack
+    from upright_tpu_torch.scripts.runtime_demo import run_demo
+
+    path = tcfg.resolve_package_path({"package": "configs", "path": "demos/ur10_demo.yaml"})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        AsyncPlanner(ControllerManager.from_config(conf))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PlannerNode(path)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_demo(conf, duration=0.01)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_stack(path, duration=0.01)
     # the device loop runs where its problem was built; a plant of another
     # dtype is refused
     prob = build_problem(conf, N=3, **CPU64)
@@ -240,3 +259,35 @@ def test_plant_kernel_is_built_without_fused_multiply_adds(tmp_path, monkeypatch
         _build.build(list(_build.SOURCES))
     flags = {Path(src).stem: cmd for src, cmd in commands.items()}
     assert "-fmad=false" in flags["plant"] and "-fmad=false" not in flags["riccati"]
+
+
+def test_executor_builds_into_the_port_and_never_into_the_reference(tmp_path, monkeypatch):
+    """native.py names no path of the JAX package's cpp/ directory (whose
+    own build writes libupright_executor.so there), compiles the port's copy
+    of the source, and writes the library into the port's build/."""
+    from upright_tpu_torch.runtime import native
+
+    src = Path(native.__file__).read_text()
+    assert "upright_tpu/cpp" not in src and "upright_tpu.cpp" not in src
+    assert native.SOURCE == _build.BUILD_DIR.parent / "cpp" / "executor.cpp"
+    assert native.library_path().parent == _build.BUILD_DIR
+    assert _build.BUILD_DIR.parent.name == "upright_tpu_torch"
+
+    commands = []
+
+    class Result:
+        returncode, stdout, stderr = 1, "", "recorded"
+
+    def record(cmd, **_kw):
+        commands.append(cmd)
+        return Result()
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(native.subprocess, "run", record)
+    with pytest.raises(RuntimeError, match="recorded"):
+        native._build_library()
+    (cmd,) = commands
+    assert cmd[-1] == str(native.SOURCE)
+    out = cmd[cmd.index("-o") + 1]
+    assert out.startswith(str(tmp_path / "build" / "libupright_executor"))
+    assert not any("upright_tpu/" in a for a in cmd)

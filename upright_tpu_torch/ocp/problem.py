@@ -195,10 +195,14 @@ class UprightProblem:
 
     def stage_params(self, t0, target: Optional[TargetTrajectory] = None,
                      balance_params=None):
-        """Per-solve parameter dict for one instance (no batch axis; lift it
-        with ``parallel.batch.broadcast_params``).
+        """Per-solve parameter dict, with the target's leading batch axes.
 
-        t0: current time (stage k is at t0 + k*dt).
+        For one target (times (n_wp,)) the dict has no batch axis; lift it
+        with ``parallel.batch.broadcast_params``.  For a stack of B targets
+        (``reference.stack_targets``, times (B, n_wp)) every leaf carries the
+        leading B that ``solve`` takes, as expanded views of one expression.
+
+        t0: current time (stage k is at t0 + k*dt), shared by the batch.
         target: overrides the stored target trajectory.
         balance_params: (n_obj, 10) overrides object inertial parameters.
         """
@@ -206,19 +210,20 @@ class UprightProblem:
         bp = self.balance_model.params if balance_params is None else balance_params
         N = self.ocp.N
         dev, dt_ = self.ocp.device, self.ocp.dtype
+        lead = tuple(target.times.shape[:-1])
+        n_wp = target.times.shape[-1]
         ts = t0 + self.dt * torch.arange(N, device=dev, dtype=dt_)
-        n_wp = target.times.shape[0]
         stage = {
-            "t": ts,
-            "target_times": target.times.expand(N, n_wp),
-            "target_poses": target.poses.expand(N, n_wp, 8),
-            "obj_params": bp.expand((N,) + tuple(bp.shape)),
+            "t": ts.expand(lead + (N,)),
+            "target_times": target.times.unsqueeze(-2).expand(lead + (N, n_wp)),
+            "target_poses": target.poses.unsqueeze(-3).expand(lead + (N, n_wp, 8)),
+            "obj_params": bp.expand(lead + (N,) + tuple(bp.shape)),
         }
         final = {
-            "t": torch.as_tensor(t0 + self.dt * N, device=dev, dtype=dt_),
+            "t": torch.as_tensor(t0 + self.dt * N, device=dev, dtype=dt_).expand(lead),
             "target_times": target.times,
             "target_poses": target.poses,
-            "obj_params": bp,
+            "obj_params": bp.expand(lead + tuple(bp.shape)),
         }
         return {"stage": stage, "final": final}
 

@@ -92,3 +92,16 @@ class TargetTrajectory:
         q = quat_slerp(p0[..., 3:7], p1[..., 3:7], alpha)
         s = torch.where(alpha < 1.0, p0[..., 7], p1[..., 7])
         return r, q, s
+
+
+def stack_targets(targets) -> TargetTrajectory:
+    """B targets of one waypoint count as one batch: times (B, n_wp), poses
+    (B, n_wp, 8) (the leading axis ``UprightProblem.stage_params`` and the
+    device loop batch over)."""
+    shapes = {tuple(t.times.shape) for t in targets}
+    if len(shapes) != 1:
+        raise ValueError(f"targets of different waypoint counts cannot be stacked: {sorted(shapes)}")
+    return TargetTrajectory(
+        times=torch.stack([t.times for t in targets]),
+        poses=torch.stack([t.poses for t in targets]),
+    )

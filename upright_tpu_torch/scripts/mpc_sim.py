@@ -2,20 +2,21 @@
 
 Counterpart of ``scripts/mpc_sim.py``.  Each control cycle: measure the joints
 (with noise when a seed is given), append the dynamic obstacles' states to
-the controller's state, MPC step (replan gated at min_policy_update_time),
-jerk double integration into a velocity command, plant step, log.
+the controller's state (for the projectile path constraint, the estimate of a
+``ProjectileTracker`` fed the simulated ball's position, whose flight phase
+also sets the target's activation flag), MPC step (replan gated at
+min_policy_update_time), jerk double integration into a velocity command,
+plant step, log.
 
-    python -m upright_tpu_torch.scripts.mpc_sim --config configs/ral23/static_obstacles/full_bottle_point1.yaml --duration 1.0
+    python -m upright_tpu_torch.scripts.mpc_sim --config configs/demos/thing_projectile_demo.yaml --duration 2.0
 
 It runs on the card (float32); ``--device cpu`` runs it on the CPU in float64.
-Configs with the projectile path constraint raise ``NotImplementedError``:
-they need the projectile estimator (``ProjectileTracker``), which is not
-ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -24,6 +25,7 @@ import torch
 import upright_tpu_torch.config as cfg
 from upright_tpu_torch.core.logging import DataLogger
 from upright_tpu_torch.core.math import rot_to_quat
+from upright_tpu_torch.runtime.projectile import ProjectileTracker
 from upright_tpu_torch.sim.obstacles import build_dynamic_obstacles
 from upright_tpu_torch.sim.simulation import UprightSimulation
 from upright_tpu_torch.solver.mpc import ControllerManager
@@ -40,11 +42,6 @@ def run_closed_loop(config, duration=None, ctrl_rate=125.0, log=None, verbose=Fa
     sim = UprightSimulation(sim_conf, device=device, dtype=dtype)
     ctrl = ControllerManager.from_config(config, device=device, dtype=dtype)
     num_ctrl_obs = ctrl.problem.dims.num_obstacles
-    if num_ctrl_obs and config["controller"].get("projectile_path_constraint", {}).get("enabled"):
-        raise NotImplementedError(
-            "the projectile path constraint needs the projectile estimator "
-            "(ProjectileTracker, runtime/projectile.py), which is not ported yet"
-        )
     generator = None
     if seed is not None:
         generator = torch.Generator(device=sim.device)
@@ -63,6 +60,15 @@ def run_closed_loop(config, duration=None, ctrl_rate=125.0, log=None, verbose=Fa
     # still advance with the clock
     _, r_ee0 = sim.ee_pose(state)
     dyn_obstacles = build_dynamic_obstacles(sim_conf, ee_position=r_ee0[0])
+    # projectile estimation only applies to ballistic obstacles with the
+    # path constraint enabled; sudden/controlled obstacles feed their state
+    # directly
+    use_projectile = bool(
+        config["controller"].get("projectile_path_constraint", {}).get("enabled")
+    )
+    tracker = (ProjectileTracker(dt_ctrl) if (dyn_obstacles and num_ctrl_obs and use_projectile)
+               else None)
+    s_target = float(ctrl.target.poses[0, 7])  # the target's activation flag, on the host
 
     logger = log if log is not None else DataLogger(timestep=0.05)
     robot_x = ctrl.problem.dims.robot_x
@@ -73,7 +79,17 @@ def run_closed_loop(config, duration=None, ctrl_rate=125.0, log=None, verbose=Fa
         q_meas, v_meas = sim.measure(state, generator=generator)
         v_meas = v_meas[0].cpu().numpy()
         x = np.concatenate([q_meas[0].cpu().numpy(), v_meas, a_state])
-        if num_ctrl_obs:
+        if tracker is not None:
+            # the ball's estimate into the obstacle tail, and its flight
+            # phase into the target's activation flag (column 7 of poses)
+            obs_state, s_flag = tracker.update(dyn_obstacles[0].position(t))
+            x = np.concatenate([x, obs_state] + [np.zeros(9)] * (num_ctrl_obs - 1))
+            if s_target != s_flag:
+                poses = ctrl.target.poses.clone()
+                poses[:, 7] = s_flag
+                ctrl.target = dataclasses.replace(ctrl.target, poses=poses)
+                s_target = s_flag
+        elif num_ctrl_obs:
             tails = [dyn_obstacles[i].state(t) if i < len(dyn_obstacles) else np.zeros(9)
                      for i in range(num_ctrl_obs)]
             x = np.concatenate([x] + tails)
@@ -124,6 +140,9 @@ def run_closed_loop(config, duration=None, ctrl_rate=125.0, log=None, verbose=Fa
                 entry["contact_forces"] = diag["contact_forces"].cpu().numpy()
             for name, _n in ctrl.problem.ineq_groups:
                 entry[name] = cons[name].cpu().numpy()
+            if tracker is not None:
+                entry["projectile_position"] = dyn_obstacles[0].position(t)
+                entry["projectile_phase"] = tracker.phase.value
             if sim.n_obj:
                 r_obj, _q_obj = sim.object_poses(state)
                 entry["r_ow_w"] = r_obj[0]

@@ -79,8 +79,11 @@ class MPCSettings:
 
 
 def _sync(device):
+    """Wait for the work queued on the calling thread's current stream: the
+    default stream, or a planner thread's own (runtime/tracker.py), whose
+    solves then never wait for the plant's launches."""
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        torch.cuda.current_stream(device).synchronize()
 
 
 class ControllerManager:
@@ -189,20 +192,23 @@ class ControllerManager:
         if self.state is None:
             self.warmstart(t, x)
         elif t >= self.last_plan_time + self.settings.replan_interval:
-            # round to whole nodes: inputs are piecewise-constant per shooting
-            # interval, so a converged warm start stays exactly feasible under
-            # sub-interval replanning (shift 0), while a full-node advance
-            # rolls the trajectory so the 1-iteration SQP starts aligned
-            shift = round((t - self.last_plan_time) / self.problem.dt)
-            x_t = self._x(x)
-            warm = self.problem.heal_warm_start(
-                self.problem.shift_warm_start(self.state, shift), x_t
-            )
-            sol = self._solve(self._cfg, self._params(t), x_t, warm)
-            self.state = sol.state
-            self.solution = sol
-            self.last_plan_time = t
+            self.replan(t, x)
         return self.evaluate_policy(t, x)
+
+    def replan(self, t, x):
+        """One warm-started replan at (t, x): shift, heal, solve."""
+        # round to whole nodes: inputs are piecewise-constant per shooting
+        # interval, so a converged warm start stays exactly feasible under
+        # sub-interval replanning (shift 0), while a full-node advance rolls
+        # the trajectory so the 1-iteration SQP starts aligned
+        shift = round((t - self.last_plan_time) / self.problem.dt)
+        x_t = self._x(x)
+        warm = self.problem.heal_warm_start(self.problem.shift_warm_start(self.state, shift), x_t)
+        sol = self._solve(self._cfg, self._params(t), x_t, warm)
+        self.state = sol.state
+        self.solution = sol
+        self.last_plan_time = t
+        return sol
 
     def evaluate_policy(self, t, x):
         """Interpolate the plan at time t; optionally add LQR feedback."""
