@@ -63,9 +63,20 @@ holds every hand-written kernel against its plain PyTorch version:
      planner thread on its own stream, the native executor at 125 wall Hz,
      the plant on the card) at time scale 0.1: 0 overruns, policy switches,
      the bottle's displacement printed; and 1.0 s of the launch
-     stack with the planner process on the card; then one JSON line
-     describing each kernel (time, bound, launches), the card's name and
-     power limit, and the final JSON line.
+     stack with the planner process on the card;
+ 16. robust planning, the ral25 path (upright_tpu_torch/robust/): the
+     study's 20 cm box, robust variant (8 CoM-vertex scenarios in one OCP:
+     N 100, nx 27, nu 41), its first waypoint, a 60-iteration plan through
+     K1; K1 and the log-depth backward pass (solver/pscan.py) on the plan's
+     stage data against the float64 plain version, and K1 at ur10_demo's
+     robust plan (18/38, N 30); float64 plans through pscan against plans
+     through K1; pscan and K1 timed side by side; the tracking sweep (15
+     CoM x 3 inertia scales, worst-case inertias, 10 s at 125 Hz, one P1
+     launch a tick for all 45 runs, 0 failures), P1 in float64 on one tick
+     of it; the post-hoc verification with the realizable barrier on the
+     card against the CPU; then one JSON line describing each kernel (time,
+     bound, launches), the card's name and power limit, and the final JSON
+     line.
 
 With ``--breakdown`` it also times the phases of one solve (linearization,
 Riccati kernel, line search) between synchronisations and traces three solves
@@ -170,13 +181,24 @@ def main():
         broadcast_params,
     )
     from upright_tpu_torch.runtime.device_loop import build_device_loop
+    from upright_tpu_torch.robust.planning import (
+        make_param_sweep,
+        plan_robust,
+        protocol_sweep,
+        tracking_sweep,
+        verify_offline_plan,
+    )
+    from upright_tpu_torch.robust.verification import count_failures
     from upright_tpu_torch.scripts import launch_stack, mpc_sim, runtime_demo
+    from upright_tpu_torch.scripts.ral25_study import COM_XY, build_study_config
     from upright_tpu_torch.sim import contact
+    from upright_tpu_torch.sim import simulation as sim_mod
     from upright_tpu_torch.sim.simulation import UprightSimulation
     from upright_tpu_torch.solver import al, riccati
     from upright_tpu_torch.solver.al import ALConfig, solve
     from upright_tpu_torch.solver.mpc import ControllerManager, MPCSettings
     from upright_tpu_torch.solver.ocp import SolverState
+    from upright_tpu_torch.solver.pscan import parallel_backward_pass
     from upright_tpu_torch.tools.plant_data import (
         F32_TOL,
         float32_witness,
@@ -929,11 +951,14 @@ def main():
         ("27x93", "ral23/static_obstacles/full_cups_point2.yaml", 64),
     ]
     rt_attrs = attrs["float32 runtime-sized"]
-    solver_widths, width_readings = {}, []
-    for label, path, B in widths:
-        data = solver_stage_data(path, B)
-        nx_, nu_ = data[2].shape[-1], data[1].shape[-1]
-        check(f"{nx_}x{nu_}" == label, f"{path}: the solver hands K1 nx {nx_}, nu {nu_}")
+
+    def k1_on_solver_data(label, data, source):
+        """K1 in float32 and float64 against the float64 plain version on the
+        stage data ``data`` (float32, as the solver hands it), the plain
+        version's own float32 error beside; times, bound, torch.linalg loop.
+        Returns (timing, reading); float64 is refused where shared memory
+        is short (the refusal is recorded)."""
+        (B, horizon, nx_), nu_ = data[2].shape, data[1].shape[-1]
         f64 = tuple(t.double() for t in data)
         K_ref, kff_ref = riccati.riccati_backward_plain(*f64, reg=reg)
         K_w, kff_w = riccati.riccati_backward_plain(*data, reg=reg)  # the plain version in float32
@@ -961,7 +986,7 @@ def main():
                 raise AssertionError(f"{label}: float64 took {riccati.smem_bytes(nx_, nu_, torch.float64, True)} "
                                      "bytes of shared memory without refusing")
         invariant = data[0].ndim == 2
-        nbytes, flops = riccati_work(B, HORIZON, nx_, nu_, invariant)
+        nbytes, flops = riccati_work(B, horizon, nx_, nu_, invariant)
         t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_FP32_FLOPS * 1e3
         call = lambda: riccati.riccati_backward(*data, reg=reg)  # noqa: E731
         timing = {
@@ -972,15 +997,15 @@ def main():
             "plain_ms": cuda_median_ms(lambda: riccati.riccati_backward_plain(*data, reg=reg),
                                        reps=1, warmup=0),
             "smem_bytes": riccati.smem_bytes(nx_, nu_, torch.float32, True),
+            "smem_bytes_float64": riccati.smem_bytes(nx_, nu_, torch.float64, True),
             "registers": rt_attrs["registers"], "local_bytes": rt_attrs["local_bytes"],
             "batch": B, "route": ("register elimination" if nu_ <= 16 else
                                   "shared-memory elimination, clamped pivots" if nu_ <= riccati.MAX_NU
                                   else "shared-memory elimination, jitter and NaN fallback (c)"),
         }
-        solver_widths[label] = {**timing, "errors": reading, "config": path}
-        width_readings.append((label, reading))
-        log(f"  {label} ({path}, batch {B}, form {'b' if invariant else 'a'}, {timing['route']}): "
-            f"float32 kernel {reading['float32']:.2e}, plain float32 {reading['plain_float32']:.2e}"
+        log(f"  {label} ({source}, batch {B}, N {horizon}, form {'b' if invariant else 'a'}, "
+            f"{timing['route']}): float32 kernel {reading['float32']:.2e}, plain float32 "
+            f"{reading['plain_float32']:.2e}"
             + (f", float64 kernel {reading['float64']:.2e}" if "float64" in reading else
                ", float64 refused (ValueError)")
             + f" of the largest entry {scale:.3g}\n    {timing['ms']:.4f} ms eager, "
@@ -988,7 +1013,17 @@ def main():
             f"({timing['bound_by']}); torch.linalg loop {timing['library_ms']:.2f} ms; plain "
             f"{timing['plain_ms']:.1f} ms; runtime-sized instance, {timing['registers']} registers, "
             f"{timing['local_bytes']} bytes of local memory, {timing['smem_bytes']} bytes of "
-            "shared memory a block")
+            f"shared memory a block ({timing['smem_bytes_float64']} in float64) [{card_line}]")
+        return timing, reading
+
+    solver_widths, width_readings = {}, []
+    for label, path, B in widths:
+        data = solver_stage_data(path, B)
+        nx_, nu_ = data[2].shape[-1], data[1].shape[-1]
+        check(f"{nx_}x{nu_}" == label, f"{path}: the solver hands K1 nx {nx_}, nu {nu_}")
+        timing, reading = k1_on_solver_data(label, data, path)
+        solver_widths[label] = {**timing, "errors": reading, "config": path}
+        width_readings.append((label, reading))
     # every reading is printed before the first check.  Tolerances: the
     # float64 kernel, phase 3's float64 route, 1e-10 of the largest entry.
     # The float32 kernel: phase 3's 1e-4 holds on its random stage data, but
@@ -1283,6 +1318,237 @@ def main():
                                  "switches": stack_out["switches"],
                                  "executor": stack_out["executor"]})
 
+    # -- 16. robust planning: the ral25 path ------------------------------------------
+    RB_H, RB_WP, RB_DURATION, RB_ITERATIONS, RB_SCALES = 0.20, [-2.0, 1.0, 0.0], 10.0, 60, (1.0, 0.5, 0.1)
+    # the JAX package's record of this plan (docs/ral25_results_h20.json,
+    # robust variant, this waypoint; the same 0.2861 in float64 on a CPU at
+    # 60 and at 120 iterations: its line search stalls there)
+    RB_JAX_EQ_VIOL = 0.28600239753723145
+    RB_JAX_PSCAN_DIFF = 7.660416766697153e-05  # see the plans through pscan and K1 below
+    # pscan against the float64 plain version on this plan's stage data: the
+    # plain version adds route (c)'s jitter (1e-7 trace(Quu) / nu) to Quu,
+    # pscan solves with R + reg alone; 6.1e-6 of the largest entry on a CPU
+    PSCAN_RTOL_F64 = 1e-5
+    log(f"== 16. robust planning: the ral25 study's {RB_H * 100:.0f} cm box, robust variant, "
+        f"waypoint {RB_WP}, {RB_DURATION:.0f} s [{card_line}]")
+    rb_box = [[COM_XY, COM_XY, RB_H / 2]]
+    rb_config = build_study_config(RB_H)
+    rb_config["controller"]["waypoints"] = [
+        {"time": 0, "position": RB_WP, "orientation": [0, 0, 0, 1]}]
+
+    def plan_stage_data(problem, state):
+        """The stage data the solver hands the backward pass at ``state``:
+        one SQP iteration with a capturing plain backward (no launch)."""
+        captured = []
+
+        def capture(*a, **kw):
+            captured[:] = [t.clone() for t in a]
+            return riccati.riccati_backward_plain(*a, **kw)
+
+        solve(problem.ocp, ALConfig(iterations=1), broadcast_params(problem.stage_params(0.0), 1),
+              problem.x0[None], state, backward=capture)
+        return tuple(captured)
+
+    riccati.launch_count = 0
+    t0 = time.perf_counter()
+    rb_prob, rb_sol, rb_plan = plan_robust(rb_config, com_half_extents=rb_box,
+                                           duration=RB_DURATION, iterations=RB_ITERATIONS)
+    torch.cuda.synchronize()
+    rb_plan_s = time.perf_counter() - t0
+    launches_rb_plan = riccati.launch_count
+    rb_ocp = rb_prob.ocp
+    rb_eq = float(rb_sol.eq_viol[0])
+    log(f"  plan: N {rb_ocp.N}, nx {rb_ocp.nx}, nu {rb_ocp.nu}, n_eq {rb_ocp.n_eq}, n_ineq "
+        f"{rb_ocp.n_ineq}; {RB_ITERATIONS} iterations in {rb_plan_s * 1e3:.1f} ms "
+        f"({rb_plan_s * 1e3 / RB_ITERATIONS:.2f} ms per iteration), K1 launches "
+        f"{launches_rb_plan}; eq_viol {rb_eq:.4f} (JAX record {RB_JAX_EQ_VIOL:.4f}; the "
+        f"ur10 vertex-plan gate 0.2), ineq_viol {float(rb_sol.ineq_viol[0]):.2e}")
+    check((rb_ocp.N, rb_ocp.nx, rb_ocp.nu, rb_ocp.n_eq, rb_ocp.n_ineq) == (100, 27, 41, 48, 136),
+          "the robust plan at full width: N 100, nx 27, nu 41 (8 scenarios x 4 contacts), "
+          "n_eq 48, n_ineq 136")
+    check(launches_rb_plan == RB_ITERATIONS, f"K1 launched once per SQP iteration ({launches_rb_plan})")
+    check(bool(np.isfinite(rb_plan.X).all() and np.isfinite(rb_plan.U).all()
+               and np.isfinite(rb_eq)), "the plan is finite")
+    check(rb_eq <= 1.25 * RB_JAX_EQ_VIOL,
+          f"eq_viol within 1.25x of the JAX package's plan of the same problem ({RB_JAX_EQ_VIOL:.4f})")
+
+    # K1 and the log-depth backward pass on the plan's own stage data
+    rb_data = plan_stage_data(rb_prob, rb_sol.state)
+    rb_k1, rb_k1_err = k1_on_solver_data("27x41", rb_data, "ral25 robust plan")
+    ur_config = cfg.load_config(cfg.resolve_package_path(
+        {"package": "configs", "path": "demos/ur10_demo.yaml"}))
+    ur_prob, ur_sol, _ = plan_robust(ur_config, com_half_extents=[[0.02, 0.02, 0.04]],
+                                     duration=3.0, iterations=5)
+    ur_data = plan_stage_data(ur_prob, ur_sol.state)
+    check(tuple(ur_data[2].shape) == (1, 30, 18) and ur_data[1].shape[-1] == 38,
+          "ur10_demo robust plan (scripts/robust_planning.py): 1x30x18x38")
+    ur_k1, ur_k1_err = k1_on_solver_data("18x38", ur_data, "ur10_demo robust plan")
+    pscan_err = {}
+    for label, data in (("27x41", rb_data), ("18x38", ur_data)):
+        f64 = tuple(t.double() for t in data)
+        K_ref, kff_ref = riccati.riccati_backward_plain(*f64, reg=reg)
+        scale = max(1.0, float(K_ref.abs().max()))
+        for name, inp in (("float64", f64), ("float32", data)):
+            Kp, kffp = parallel_backward_pass(*inp, reg=reg)
+            pscan_err[f"{label}_{name}"] = max(float((Kp.double() - K_ref).abs().max()),
+                                               float((kffp.double() - kff_ref).abs().max())) / scale
+    log("  pscan on the same data against the float64 plain version, of the largest entry: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in pscan_err.items()))
+    # K1 in float32 against two float32 witnesses on the same data, the plain
+    # version and pscan: over 30-100 stages the float32 error of the
+    # recursion depends on the order of its sums (at N 100 the plain version
+    # reads 5.22e-6 on the card, 2.6e-5 on a CPU, pscan 3.21e-5), so K1 is
+    # held within 3x of the larger witness and to phase 11's 1e-3
+    for label, reading in (("27x41", rb_k1_err), ("18x38", ur_k1_err)):
+        witness = max(reading["plain_float32"], pscan_err[f"{label}_float32"])
+        check(reading["float64"] <= KERNEL_RTOL_F64,
+              f"{label}: float64 kernel within {KERNEL_RTOL_F64} of the largest entry")
+        check(reading["float32"] <= K_RTOL and reading["float32"] <= W32_FACTOR * witness,
+              f"{label}: float32 kernel within {K_RTOL} of the largest entry and within "
+              f"{W32_FACTOR}x of the larger float32 witness error (plain version, pscan)")
+    check(all(pscan_err[f"{w}_float64"] <= PSCAN_RTOL_F64
+              and np.isfinite(pscan_err[f"{w}_float32"]) for w in ("27x41", "18x38")),
+          f"pscan float64 within {PSCAN_RTOL_F64} of the largest entry, float32 finite")
+
+    # float64 plans of 10 iterations through pscan against the same through
+    # K1: at tests/test_backward_options.py's case (ur10_demo, N 40, route
+    # (b)) to its 1e-5; at this problem, where K1 and the reference's scan
+    # add route (c)'s jitter to Quu and pscan does not, to the JAX package's
+    # own difference between its two plans (7.6604e-05 on a CPU), to 1e-8
+    plan_diff, plan_f64_ms = {}, {}
+    for label, conf, kw in (("ur10_N40", ur_config, dict(duration=4.0)),
+                            ("ral25_N100", rb_config, dict(com_half_extents=rb_box,
+                                                           duration=RB_DURATION))):
+        plans_ = {}
+        for backward in ("K1", "pscan"):
+            t0 = time.perf_counter()
+            plans_[backward] = plan_robust(conf, iterations=10, dtype=torch.float64,
+                                           use_parallel_scan=backward == "pscan", **kw)[2]
+            torch.cuda.synchronize()
+            plan_f64_ms[f"{label}_{backward}"] = (time.perf_counter() - t0) * 1e3 / 10
+        plan_diff[label] = max(float(np.abs(plans_["pscan"].X - plans_["K1"].X).max()),
+                               float(np.abs(plans_["pscan"].U - plans_["K1"].U).max()))
+    log(f"  float64, 10 iterations, the plan through pscan against the plan through K1, X and U: "
+        f"ur10_demo N 40 {plan_diff['ur10_N40']:.2e}, this problem {plan_diff['ral25_N100']:.6e} "
+        f"(the JAX package's {RB_JAX_PSCAN_DIFF:.6e}); ms per iteration (host, float64) "
+        + ", ".join(f"{k} {v:.1f}" for k, v in plan_f64_ms.items()))
+    check(plan_diff["ur10_N40"] <= 1e-5, "ur10_demo N 40: the pscan plan equals the K1 plan to 1e-5")
+    check(abs(plan_diff["ral25_N100"] - RB_JAX_PSCAN_DIFF) <= 1e-8,
+          "this problem: pscan and K1 plans differ as the JAX package's do, to 1e-8")
+
+    # pscan and K1 per call, float32, side by side
+    pscan_times = {}
+    for label, inp in (("1x100x27x41", rb_data),
+                       ("64x200x27x13", kernel_inputs["form_b_64x200x27x13"])):
+        ps = lambda: parallel_backward_pass(*inp, reg=reg)  # noqa: E731
+        k1 = lambda: riccati.riccati_backward(*inp, reg=reg)  # noqa: E731
+        pscan_times[label] = {
+            "pscan_ms": cuda_median_ms(ps, reps=10),
+            "k1_ms": cuda_median_ms(k1, reps=20), "k1_ms_per_launch": cuda_launch_ms(k1, reps=20),
+        }
+        t_ = pscan_times[label]
+        log(f"  {label}: pscan {t_['pscan_ms']:.4f} ms eager; K1 "
+            f"{t_['k1_ms']:.4f} ms eager, {t_['k1_ms_per_launch']:.4f} ms per launch [{card_line}]")
+
+    # the tracking sweep: 15 CoM x 3 inertia scales, the worst-case inertias,
+    # the protocol's raised substep count; one P1 launch a tick for all 45
+    _cfg_sweep, rb_sim, rb_offsets, rb_inertias = protocol_sweep(rb_config, rb_box, RB_SCALES)
+    rb_params = make_param_sweep(rb_sim, com_offsets=rb_offsets, inertia_scales=list(RB_SCALES),
+                                 inertias=rb_inertias)
+    n_sub_nominal = UprightSimulation(rb_config["simulation"]).object_substeps
+    rb_smem = {dt_: contact.smem_bytes(rb_sim.tables, rb_sim.object_substeps, dt_)
+               for dt_ in (torch.float32, torch.float64)}
+    log(f"  sweep: {rb_params['mass'].shape[0]} runs, object substeps {n_sub_nominal} -> "
+        f"{rb_sim.object_substeps} (sqrt(I_nom / I_min)), P1 shared memory "
+        f"{rb_smem[torch.float32]} bytes a block in float32, {rb_smem[torch.float64]} in float64")
+    CAPTURE_TICK = 200  # 1.6 s into the motion
+    tick_inputs_rb, ticks_seen = {}, [0]
+    real_advance = sim_mod.advance_objects
+
+    def capturing_advance(tables, consts, frames, objects, params):
+        """The plant's kernel entry, keeping one tick's inputs (no launch of its own)."""
+        if ticks_seen[0] == CAPTURE_TICK:
+            tick_inputs_rb.update(frames=frames.clone(), objects=objects_to(objects, dev, frames.dtype),
+                                  params={k: v.clone() for k, v in params.items()})
+        ticks_seen[0] += 1
+        return real_advance(tables, consts, frames, objects, params)
+
+    sim_mod.advance_objects = capturing_advance
+    contact.launch_count = 0
+    try:
+        t0 = time.perf_counter()
+        rb_disp = tracking_sweep(rb_sim, rb_plan, rb_params)
+        torch.cuda.synchronize()
+        rb_sweep_s = time.perf_counter() - t0
+    finally:
+        sim_mod.advance_objects = real_advance
+    launches_rb_sweep = contact.launch_count
+    rb_ticks = int(np.floor(rb_plan.ts[-1] * 125.0))
+    rb_worst = rb_disp.max(axis=1)
+    rb_fail = count_failures(rb_disp)
+    rb_div = int((~np.isfinite(rb_worst)).sum())
+    rb_max_disp = float(rb_worst[np.isfinite(rb_worst)].max())
+    log(f"  {rb_ticks} ticks at 125 Hz in {rb_sweep_s:.2f} s ({rb_sweep_s * 1e3 / rb_ticks:.3f} ms "
+        f"per tick for all 45 runs), P1 launches {launches_rb_sweep}; failures {rb_fail} / "
+        f"{len(rb_worst)}, n_diverged {rb_div}, max displacement {rb_max_disp:.4f} m [{card_line}]")
+    check(launches_rb_sweep == rb_ticks == 1250, "P1 launched once per tick for the whole batch (1,250)")
+    check(rb_fail == 0 and rb_div == 0, "failures 0 / 45, none diverged (the JAX study's record)")
+
+    # P1 on one tick of that batch: float64 kernel against the float64 plain version
+    fr, ob, pr = tick_inputs_rb["frames"], tick_inputs_rb["objects"], tick_inputs_rb["params"]
+    tables64 = rb_sim.tables.to(dtype=torch.float64)
+    in64 = (fr.double(), objects_to(ob, dev, torch.float64), {k: v.double() for k, v in pr.items()})
+    ref_rb = contact.advance_objects_plain(tables64, rb_sim.contact, *in64)
+    out_rb = contact.advance_objects(tables64, rb_sim.contact, *in64)
+    torch.cuda.synchronize()
+    err_rb, same_rb = max_errors(out_rb, ref_rb)
+    sweep_call = lambda: contact.advance_objects(rb_sim.tables, rb_sim.contact, fr, ob, pr)  # noqa: E731
+    nbytes_rb, ops_rb = contact.plant_work(rb_sim.tables, rb_sim.contact, fr.shape[0], fr.shape[1], 4)
+    p1_sweep = {"ms": cuda_median_ms(sweep_call, reps=20),
+                "ms_per_launch": cuda_launch_ms(sweep_call, reps=10),
+                "bound_ms": max(nbytes_rb / H100_BYTES_PER_S, ops_rb / H100_FP32_FLOPS) * 1e3,
+                "bound_by": "bytes" if nbytes_rb / H100_BYTES_PER_S >= ops_rb / H100_FP32_FLOPS
+                else "operations",
+                "substeps": fr.shape[1] * rb_sim.object_substeps}
+    log(f"  P1, tick {CAPTURE_TICK} of the sweep (batch 45, {fr.shape[1]} x {rb_sim.object_substeps} "
+        f"substeps): float64 kernel vs plain {fmt(err_rb)}, flags "
+        f"{'identical' if same_rb else 'differ'}; float32 {p1_sweep['ms']:.4f} ms eager, "
+        f"{p1_sweep['ms_per_launch']:.4f} ms per launch, bound {p1_sweep['bound_ms']:.6f} ms "
+        f"({p1_sweep['bound_by']}) [{card_line}]")
+    check(same_rb and max(err_rb.values()) <= PLANT_TOL_F64,
+          f"sweep tick: float64 within {PLANT_TOL_F64}, contact and latch flags identical")
+
+    # the post-hoc verification, vertex form and the realizable set (the
+    # barrier on the card), against the same call on the CPU
+    rb_nominal = build_problem(rb_config, N=rb_ocp.N)
+    t0 = time.perf_counter()
+    rb_ver = verify_offline_plan(rb_nominal, rb_plan, rb_box, inertia_scales=RB_SCALES, realizable=True)
+    torch.cuda.synchronize()
+    rb_ver_s = time.perf_counter() - t0
+    rb_ver_cpu = verify_offline_plan(build_problem(rb_config, N=rb_ocp.N, device="cpu",
+                                                   dtype=torch.float64),
+                                     rb_plan, rb_box, inertia_scales=RB_SCALES, realizable=True)
+    ver_diff = max(abs(rb_ver[k] - rb_ver_cpu[k]) for k in rb_ver)
+    log(f"  verification ({rb_ver_s:.2f} s): worst-case CWC violation "
+        f"{rb_ver['worst_case_cwc_violation']:.4f}, realizable "
+        f"{rb_ver['worst_case_cwc_violation_realizable']:.4f}, violation steps "
+        f"{rb_ver['violation_steps']} / {rb_ver['n_states']} (JAX record: -0.0141, 0 / 51); "
+        f"card against CPU {ver_diff:.2e}")
+    check(ver_diff <= 1e-8 and rb_ver["violation_steps"] == rb_ver_cpu["violation_steps"],
+          "the verification on the card equals the CPU's (float64, 1e-8)")
+    results["robust"] = {
+        "plan_ms": rb_plan_s * 1e3, "plan_ms_per_iteration": rb_plan_s * 1e3 / RB_ITERATIONS,
+        "plan_launches_k1": launches_rb_plan, "plan_eq_viol": rb_eq,
+        "k1_27x41": {**rb_k1, "errors": rb_k1_err}, "k1_18x38": {**ur_k1, "errors": ur_k1_err},
+        "pscan_err": pscan_err, "pscan_vs_k1_plan_diff_f64": plan_diff, "times": pscan_times,
+        "plan_f64_ms_per_iteration": plan_f64_ms,
+        "sweep_s": rb_sweep_s, "sweep_ms_per_tick": rb_sweep_s * 1e3 / rb_ticks,
+        "sweep_launches_p1": launches_rb_sweep, "failures": rb_fail, "n_diverged": rb_div,
+        "max_displacement_m": rb_max_disp, "object_substeps": rb_sim.object_substeps,
+        "p1_smem_bytes": {str(k): v for k, v in rb_smem.items()}, "p1_sweep_tick": p1_sweep,
+        "p1_sweep_err_f64": err_rb, "verification": rb_ver, "verification_s": rb_ver_s,
+    }
+
     # -- optional: where one solve's time goes ---------------------------------
     def phase_breakdown(label, ocp, p, x0, st):
         """Host time of each phase of one SQP iteration of ``ocp`` between
@@ -1436,7 +1702,7 @@ def main():
                 "route": "cuda",
                 "source": "upright_tpu_torch/csrc/riccati.cu",
                 "replaces": "upright_tpu/solver/pallas_riccati.py:186",
-                "launches": launches_batched + launches_replan,
+                "launches": launches_batched + launches_replan + launches_rb_plan,
                 "max_abs_err": max_abs_err,
                 "ms": t_ms("form_b_512x20x27x13"),
                 "plain_ms": plain_ms,
@@ -1483,13 +1749,19 @@ def main():
                 "launches_group_loop": launches_group[0],
                 "launches_projectile_loop": launches_proj[0],
                 "launches_runtime_demo": runtime["launches"][0],
+                # phase 16: the ral25 robust plan (1x100x27x41), one launch per
+                # SQP iteration; K1 and pscan on its stage data and at 18/38
+                "launches_robust_plan": launches_rb_plan,
+                "ms_27x41_N100": round(results["robust"]["k1_27x41"]["ms"], 6),
+                "ms_18x38_N30": round(results["robust"]["k1_18x38"]["ms"], 6),
+                "pscan": results["robust"]["times"],
             },
             {
                 "name": "plant_substeps",
                 "route": "cuda",
                 "source": "upright_tpu_torch/csrc/plant.cu",
                 "replaces": "upright_tpu/sim/simulation.py:324-644 (no Pallas kernel)",
-                "launches": launches_loop_p1,
+                "launches": launches_loop_p1 + launches_rb_sweep,
                 "max_abs_err": plant_err32,
                 "ms": round(plant_times["batch1"]["ms"], 6),
                 "plain_ms": plant_plain_ms,
@@ -1510,6 +1782,11 @@ def main():
                 "launches_group_loop": launches_group[1],
                 "launches_projectile_loop": launches_proj[1],
                 "launches_runtime_demo": runtime["launches"][1],
+                # phase 16: the tracking sweep, batch 45, one launch a tick
+                "launches_tracking_sweep": launches_rb_sweep,
+                "ms_tracking_sweep_batch45": round(results["robust"]["p1_sweep_tick"]["ms"], 6),
+                "ms_per_launch_tracking_sweep_batch45":
+                    round(results["robust"]["p1_sweep_tick"]["ms_per_launch"], 6),
             },
         ]
     }
@@ -1528,6 +1805,8 @@ def main():
         f"batched_loop_ms_per_tick={'/'.join(f'{v['ms_per_tick']:.2f}' for v in batched_loop.values())} "
         f"projectile_ms_per_tick={proj_s * 1e3 / n_ticks_p:.2f} "
         f"runtime_replan_p99_ms={runtime['replan_ms_p99']:.2f} "
+        f"robust_plan_ms_per_iteration={results['robust']['plan_ms_per_iteration']:.2f} "
+        f"sweep_ms_per_tick={results['robust']['sweep_ms_per_tick']:.3f} "
         f"total_s={time.perf_counter() - t_start:.1f}")
     print(json.dumps(kernels), flush=True)
     print(card_line, flush=True)

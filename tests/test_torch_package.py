@@ -40,7 +40,10 @@ def test_importing_the_port_pulls_in_no_jax():
     for module in ("solver.riccati", "sim.contact", "sim.simulation", "solver.mpc",
                    "runtime.device_loop", "scripts.mpc_sim", "core.logging", "runtime.estimator",
                    "runtime.projectile", "runtime.safety", "runtime.tracker", "runtime.native",
-                   "runtime.launch", "scripts.runtime_demo", "scripts.launch_stack"):
+                   "runtime.launch", "scripts.runtime_demo", "scripts.launch_stack",
+                   "solver.pscan", "robust.modelling", "robust.synthesis", "robust.verification",
+                   "robust.scenarios", "robust.realizable", "robust.planning",
+                   "scripts.robust_planning", "scripts.ral25_study"):
         assert f"upright_tpu_torch.{module}" in names
     assert len(names) >= 30
     code = (
@@ -291,3 +294,33 @@ def test_executor_builds_into_the_port_and_never_into_the_reference(tmp_path, mo
     out = cmd[cmd.index("-o") + 1]
     assert out.startswith(str(tmp_path / "build" / "libupright_executor"))
     assert not any("upright_tpu/" in a for a in cmd)
+
+
+def test_robust_entry_points_default_to_the_card():
+    """Robust planning (the plan, the protocol and its sweep's set-up, the
+    scenario solve, the realizable barrier and the script) asks for the card
+    unless given device='cpu', and raises without one."""
+    if has_card():
+        pytest.skip("this machine has a card: the default device exists")
+    from upright_tpu_torch.robust.planning import plan_robust, protocol_sweep, ral25_protocol
+    from upright_tpu_torch.robust.realizable import RealizableSet, realizable_max_linear
+    from upright_tpu_torch.robust.scenarios import robust_solve_fn
+    from upright_tpu_torch.scripts import robust_planning
+
+    conf = small_problem()
+    box = [[0.01, 0.01, 0.02]]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        plan_robust(conf, duration=0.3, iterations=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ral25_protocol(conf, com_half_extents=box, duration=0.3, iterations=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        protocol_sweep(conf, box)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        robust_planning.run(conf, duration=0.3, iterations=1)
+    rset = RealizableSet(lower=-np.ones(3), upper=np.ones(3), com_lower=-0.1 * np.ones(3),
+                         com_upper=0.1 * np.ones(3), mass=1.0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        realizable_max_linear(np.eye(10)[:1], rset)
+    prob = build_problem(conf, N=3, **CPU64)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        robust_solve_fn(prob.ocp, ALConfig())

@@ -269,9 +269,16 @@ def _use_jac_col_blocks(sqp_conf: dict, device: torch.device) -> bool:
 
 
 def build_problem(config: dict, N: Optional[int] = None, device="cuda",
-                  dtype=torch.float32) -> UprightProblem:
+                  dtype=torch.float32, _balance_model: Optional[BalanceModel] = None
+                  ) -> UprightProblem:
     """Build the OCP from a merged config dict (see configs/), with every
-    constant on ``device`` as ``dtype``."""
+    constant on ``device`` as ``dtype``.
+
+    ``_balance_model`` (internal: robust planning's scenario-stacked model,
+    ``robust.planning.plan_robust``) takes the place of the model parsed
+    from the config; the reference patches its parser module for this, which
+    a planner thread building problems concurrently must not see.
+    """
     device = resolve_device(device)
     ctrl = config["controller"]
     robot_conf = ctrl["robot"]
@@ -287,6 +294,8 @@ def build_problem(config: dict, N: Optional[int] = None, device="cuda",
         model, names, objects, contacts = cfg_mod.parse_control_objects(
             dict(ctrl), device=device, dtype=dtype
         )
+        if _balance_model is not None:
+            model = _balance_model
         frictionless = bool(balancing.get("frictionless", True))
         nf = 1 if frictionless else 3
         nc = model.num_contacts

@@ -27,6 +27,7 @@ from torch.func import jacfwd, jacrev, vmap
 
 from upright_tpu_torch import check_on_device
 from upright_tpu_torch.solver.ocp import OCP, Solution, SolverState
+from upright_tpu_torch.solver.pscan import parallel_backward_pass
 from upright_tpu_torch.solver.riccati import riccati_backward
 
 
@@ -54,6 +55,10 @@ class ALConfig:
     dual_update_every: int = 1  # primal iterations per dual update
     dual_step: float = 1.0  # damping factor on the multiplier step
     defect_penalty: float = 100.0  # multiple-shooting merit weight on |f(x_k,u_k) - x_{k+1}|
+    # Riccati backward pass, with the reference's names:
+    #   "scan", "pallas"  riccati_backward: the kernel K1 on the card
+    #   "pscan"           the log-depth ladder of solver/pscan.py (long horizons)
+    backward: str = "scan"
 
 
 # ---------------------------------------------------------------------------
@@ -340,13 +345,20 @@ def solve(ocp: OCP, cfg: ALConfig, params, x0, state: SolverState,
     x0: (B, nx); state: batch-first SolverState.  Every tensor must lie on
     ``device`` as ``dtype`` (the defaults are the card and float32).
 
-    backward: the Riccati backward pass, ``riccati_backward`` unless given;
-    a caller passes ``riccati_backward_plain`` to compare against the kernel.
+    backward: the Riccati backward pass, the one ``cfg.backward`` names
+    unless given; a caller passes ``riccati_backward_plain`` to compare
+    against the kernel.
     """
     check_on_device(x0, device, dtype, "x0")
     check_on_device(state.X, device, dtype, "state.X")
     if backward is None:
-        backward = riccati_backward
+        if cfg.backward in ("scan", "pallas"):
+            backward = riccati_backward
+        elif cfg.backward == "pscan":
+            backward = parallel_backward_pass
+        else:
+            raise ValueError("ALConfig.backward must be 'scan', 'pallas' or 'pscan'; "
+                             f"got {cfg.backward!r}")
     p_stage = params["stage"]
     p_final = params["final"]
     B = x0.shape[0]
@@ -393,7 +405,8 @@ def solve(ocp: OCP, cfg: ALConfig, params, x0, state: SolverState,
         grads, hess = _stage_derivatives(ocp, cfg, x, u, p_stage, lam, mu)
         gf, Hf = _final_derivatives(ocp, cfg, X[:, -1], p_final, lam_f)
 
-        # Riccati backward pass: the CUDA kernel on the card
+        # Riccati backward pass: the CUDA kernel on the card, or the ladder
+        # (a stage-invariant A, B pair is broadcast by either)
         K, kff = backward(
             A.contiguous(), Bm.contiguous(), d.contiguous(), grads.contiguous(),
             hess.contiguous(), gf.contiguous(), Hf.contiguous(), reg=cfg.reg,
