@@ -43,7 +43,8 @@ def test_importing_the_port_pulls_in_no_jax():
                    "runtime.launch", "scripts.runtime_demo", "scripts.launch_stack",
                    "solver.pscan", "robust.modelling", "robust.synthesis", "robust.verification",
                    "robust.scenarios", "robust.realizable", "robust.planning",
-                   "scripts.robust_planning", "scripts.ral25_study"):
+                   "scripts.robust_planning", "scripts.ral25_study", "scripts.ral23_sweep",
+                   "scripts.aligned_differential_study"):
         assert f"upright_tpu_torch.{module}" in names
     assert len(names) >= 30
     code = (
@@ -324,3 +325,18 @@ def test_robust_entry_points_default_to_the_card():
     prob = build_problem(conf, N=3, **CPU64)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         robust_solve_fn(prob.ocp, ALConfig())
+
+
+def test_sweep_entry_points_default_to_the_card():
+    """The ral23 sweep's group and the aligned study's leaf ask for the card
+    unless given device='cpu', and raise without one."""
+    if has_card():
+        pytest.skip("this machine has a card: the default device exists")
+    from upright_tpu_torch.scripts import aligned_differential_study, ral23_sweep
+
+    paths = ral23_sweep.discover_groups(REPO / "configs" / "ral23" / "static_obstacles")[
+        "full_bottle"]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ral23_sweep.run_group("full_bottle", paths, duration=0.01)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        aligned_differential_study.run_leaf("full", 0.0, seed=0, duration=0.01)

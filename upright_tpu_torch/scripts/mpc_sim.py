@@ -153,6 +153,8 @@ def run_closed_loop(config, duration=None, ctrl_rate=125.0, log=None, verbose=Fa
             _, r_ew = sim.ee_pose(state)
             print(f"t={t:6.2f}s  r_ee={np.round(r_ew[0], 3)}", flush=True)
 
+    # the run's dynamic obstacles, for callers that check where they went
+    run_closed_loop.last_obstacles = dyn_obstacles
     return sim, state, ctrl, logger
 
 
