@@ -9,11 +9,12 @@ These tests need an NVIDIA GPU and nvcc; elsewhere they skip.  Run them with
 port do not need.)
 
 ``chip_smoke.py`` holds the kernel against its plain version at the
-main-path shapes; these cover the rest: the narrowest input block and the
-widths on each side of the route switch (nu = 24, 25, 32, 45), the stage data
-the solver hands the kernel on the obstacle-course, frictional and wide
-problems (27/21, 18/18, 36/13, 27/33, 27/93; float64 at 27/93 refused), the
-three Jacobian modes of the stage derivatives, a single stage
+main-path shapes; these cover the rest: the narrowest input block, the
+widths on each side of the switch to the wide route (nu = 16, 17) and of the
+jitter (24, 25), a full warp of inputs (32), 45, the stage data the solver
+hands the kernel at every ral23 width (float64 too, 27/57, 27/93 and 18/90
+included), a shape past the wide route's shared memory, the three Jacobian
+modes of the stage derivatives, a single stage
 and a long horizon, odd widths (rows that cannot be copied 16 bytes at a
 time), a shape whose shared memory exceeds the 48 KB static limit (the opt-in
 attribute path), both input forms, the instances compiled for the shipped
@@ -53,14 +54,14 @@ def card():
         (3, 1, 4, 2),  # a single stage
         (5, 7, 6, 1),  # one input
         (3, 6, 12, 16),  # the widest register elimination of the runtime-sized instance
-        (3, 6, 12, 17),  # the narrowest elimination in shared memory
+        (3, 6, 12, 17),  # the narrowest of the wide route
         (2, 3, 70, 16),  # more column groups than warps: two passes of the register elimination
         (4, 9, 10, 24),  # the widest input block of the clamped route
         (4, 9, 10, 25),  # the narrowest of the jittered route
         (3, 6, 12, 32),  # a full warp of input columns
         (3, 8, 27, 45),  # the frictional three-object width
         (3, 5, 7, 4),  # odd nx and nz: element-sized copies only
-        (2, 5, 60, 20),  # 143 KB of shared memory: above the static limit
+        (2, 5, 60, 20),  # 92 KB of shared memory: above the static limit
         (300, 20, 27, 13),  # more blocks than SMs, main-path widths
         (5, 20, 18, 10),  # the arm-only widths
         (2, 200, 27, 13),  # a long horizon
@@ -86,7 +87,8 @@ def test_kernel_matches_plain_float64(card, shape, invariant):
 @pytest.mark.parametrize(
     "shape",
     [(3, 1, 4, 2), (3, 6, 12, 16), (3, 6, 12, 17), (4, 9, 10, 24), (4, 9, 10, 25),
-     (3, 8, 27, 45), (3, 5, 7, 4), (16, 20, 27, 13), (2, 200, 27, 13)],
+     (3, 8, 27, 45), (3, 5, 7, 4), (16, 20, 27, 13), (2, 200, 27, 13),
+     (3, 6, 27, 93), (2, 5, 27, 96)],  # the wide route's widest shipped and widest float64 width
     ids=lambda s: "x".join(map(str, s)),
 )
 @pytest.mark.parametrize("invariant", [False, True], ids=["form_a", "form_b"])
@@ -184,8 +186,6 @@ SOLVER_WIDTHS = {
     "27x57": ("ral23/freespace/full_arch_point1.yaml", 4),
     "18x90": ("ral23/static_obstacles/full_cups_arm_only.yaml", 4),
 }
-# float64 needs more shared memory a block than the card has at these widths
-REFUSED_F64 = {"27x93", "27x57", "18x90"}
 
 
 @pytest.fixture(scope="module")
@@ -208,9 +208,8 @@ def test_kernel_matches_plain_on_solver_stage_data(solver_data, width):
     """The stage data of the second iteration of a cold solve on the card:
     the float32 kernel within 1e-3 of the largest entry of the float64 plain
     version (on this data the plain version in float32 is itself 1.2e-4 off
-    at 27/21, see chip_smoke.py phase 11), and (where a block's shared memory
-    holds it) the float64 kernel within 1e-10 of it; elsewhere float64 is
-    refused and nothing is launched."""
+    at 27/21, see chip_smoke.py phase 11), and the float64 kernel within 1e-10
+    of it."""
     data = solver_data(width)
     nx, nu = data[2].shape[-1], data[1].shape[-1]
     assert f"{nx}x{nu}" == width
@@ -221,29 +220,43 @@ def test_kernel_matches_plain_on_solver_stage_data(solver_data, width):
     torch.cuda.synchronize()
     assert float((K.double() - K_ref).abs().max()) < 1e-3 * scale
     assert float((kff.double() - kff_ref).abs().max()) < 1e-3 * scale
-    fits64 = riccati.smem_bytes(nx, nu, torch.float64, True) <= riccati.MAX_SMEM_BYTES
-    assert fits64 == (width not in REFUSED_F64)
-    if fits64:
-        K64, kff64 = riccati.riccati_backward(*f64, reg=REG)
-        torch.cuda.synchronize()
-        assert float((K64 - K_ref).abs().max()) < 1e-10 * scale
-        assert float((kff64 - kff_ref).abs().max()) < 1e-10 * scale
-    else:
-        before = riccati.launch_count
-        with pytest.raises(ValueError, match="shared memory"):
-            riccati.riccati_backward(*f64, reg=REG)
-        assert riccati.launch_count == before
+    K64, kff64 = riccati.riccati_backward(*f64, reg=REG)
+    torch.cuda.synchronize()
+    assert float((K64 - K_ref).abs().max()) < 1e-10 * scale
+    assert float((kff64 - kff_ref).abs().max()) < 1e-10 * scale
 
 
-def test_float64_refused_where_shared_memory_is_short(solver_data):
-    """27/93 in float64 needs 439,776 bytes of shared memory a block: the
-    wrapper raises and launches nothing (float32 fits)."""
-    data = solver_data("27x93")
-    assert riccati.smem_bytes(27, 93, torch.float32, True) <= riccati.MAX_SMEM_BYTES
-    assert riccati.smem_bytes(27, 93, torch.float64, True) > riccati.MAX_SMEM_BYTES
+@pytest.mark.parametrize("width", ["27x57", "27x93", "18x90"])
+def test_float64_runs_at_every_shipped_width(solver_data, width):
+    """The three widest shipped widths, whose float64 blocks take the most
+    shared memory: each fits under MAX_SMEM_BYTES and launches, within 1e-10
+    of the largest entry of the float64 plain version."""
+    data = solver_data(width)
+    nx, nu = data[2].shape[-1], data[1].shape[-1]
+    assert riccati.smem_bytes(nx, nu, torch.float64, True) <= riccati.MAX_SMEM_BYTES
+    f64 = tuple(t.double() for t in data)
     before = riccati.launch_count
-    with pytest.raises(ValueError, match="shared memory"):
-        riccati.riccati_backward(*(t.double() for t in data), reg=REG)
+    K, kff = riccati.riccati_backward(*f64, reg=REG)
+    torch.cuda.synchronize()
+    assert riccati.launch_count == before + 1
+    K_ref, kff_ref = riccati.riccati_backward_plain(*f64, reg=REG)
+    scale = max(1.0, float(K_ref.abs().max()))
+    assert float((K - K_ref).abs().max()) < 1e-10 * scale
+    assert float((kff - kff_ref).abs().max()) < 1e-10 * scale
+
+
+def test_shape_past_the_wide_route_raises(card):
+    """nx 27, nu 97 in float64 needs more shared memory a block than the card
+    has (nu 96 is the widest that fits): ValueError naming the limit, and
+    nothing launched; float32 fits."""
+    assert riccati.smem_bytes(27, 96, torch.float64, True) <= riccati.MAX_SMEM_BYTES
+    assert riccati.smem_bytes(27, 97, torch.float32, True) <= riccati.MAX_SMEM_BYTES
+    assert riccati.smem_bytes(27, 97, torch.float64, True) > riccati.MAX_SMEM_BYTES
+    arrays = stage_data(1, 2, 27, 97, seed=5, invariant=True)
+    before = riccati.launch_count
+    with pytest.raises(ValueError, match=f"one block has {riccati.MAX_SMEM_BYTES}"):
+        riccati.riccati_backward(
+            *(torch.as_tensor(a, dtype=torch.float64, device=card) for a in arrays), reg=REG)
     assert riccati.launch_count == before
 
 

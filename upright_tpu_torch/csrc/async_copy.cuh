@@ -2,7 +2,7 @@
 // sm_80 and later).  A thread starts any number of copies and goes on
 // computing; cp_async_wait_all() returns once all of its own copies have
 // landed, and a block-wide barrier after it makes every thread's copies
-// visible to the block.
+// visible to the block.  And a prefetch of device memory into L2.
 
 #pragma once
 
@@ -19,4 +19,10 @@ __device__ __forceinline__ void cp_async(void* smem_dst, const void* gmem_src) {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Asks the L2 cache for the 128-byte line that holds `gmem`; no register
+// waits for it.
+__device__ __forceinline__ void prefetch_l2(const void* gmem) {
+  asm volatile("prefetch.global.L2 [%0];\n" :: "l"(gmem));
 }

@@ -16,14 +16,18 @@ Two input forms:
       whole batch (linear dynamics).  The kernel takes it through zero
       strides; the broadcast is never materialised.
 
-Two routes for the factorisation of Quu, switched at ``MAX_NU`` as in the
+Two rules for the factorisation of Quu, switched at ``MAX_NU`` as in the
 reference: up to 24 inputs the pivots are clamped, ``sqrt(max(s, 1e-12))``;
 above, Quu gets a relative diagonal jitter and, per instance and stage, a
 larger one where the first factorisation fails, and NaN where both do.
 
-The kernel is compiled for float32 and float64.  float32 calls at the widths
-of the shipped configurations (nx/nu = 27/13 and 18/10) go to instances with
-compile-time sizes; every other shape, and float64, to a runtime-sized one.
+Two routes in the kernel, chosen by dtype and width alone (``INSTANCES``):
+up to 16 inputs one elimination in registers (compile-time sizes for float32
+calls at the widths of the shipped configurations, nx/nu = 27/13 and 18/10;
+runtime-sized otherwise, float32 and float64); above 16 the wide route, which
+factors Quu in panels of 16 columns and takes every shipped width in both
+dtypes.  A shape whose block would need more than ``MAX_SMEM_BYTES`` of
+shared memory raises (in float64 at nx 27: nu above 96).
 """
 
 from __future__ import annotations
@@ -44,9 +48,11 @@ JITTER = (1e-7, 1e-3)  # relative to max(trace(Quu) / nu, JITTER_FLOOR)
 JITTER_FLOOR = 1e-9
 MAX_SMEM_BYTES = 232448  # dynamic shared memory one block can have on an H100
 
-# The kernel's instantiations, in the order of csrc/riccati.cu's pick_instance
+# The kernel's instantiations, in the order of csrc/riccati.cu's pick_instance:
+# the register route (nu <= 16), then the wide route (nu > 16)
 INSTANCES = ("float32 nx=27 nu=13", "float32 nx=18 nu=10",
-             "float32 runtime-sized", "float64 runtime-sized")
+             "float32 runtime-sized", "float64 runtime-sized",
+             "float32 wide", "float64 wide")
 _ELEM_BYTES = {torch.float32: 4, torch.float64: 8}
 
 # Number of kernel launches made by `riccati_backward` (CUDA path only).

@@ -5,7 +5,8 @@
 // reads A, B, d, g, H, gf, Hf from DIR (raw float64, C order; A and B without
 // the batch and stage axes when INVARIANT is 1), converts them to the
 // instance's type, and writes K_out and kff_out (float64).  INSTANCE is f0 or d0
-// (runtime-sized, float32 or float64) or f2713, d2713, f1810, d1810.  With
+// (runtime-sized, float32 or float64: the register route up to nu 16, the wide
+// route above, as the launcher picks) or f2713, d2713, f1810, d1810.  With
 // LATE_COPIES 1 an asynchronous copy lands when its thread waits for it, with 0
 // when it is started.  riccati.cu is csrc/riccati.cu, copied beside this file
 // so that its includes find the stand-ins here.
@@ -65,13 +66,18 @@ struct Launch {
   int block, thread;
 };
 
-template <typename T, int NX, int NU>
+template <typename T, int NX, int NU, bool WIDE>
 void* cuda_thread(void* p) {
   const auto* a = static_cast<const Launch<T>*>(p);
   threadIdx = {a->thread, 0, 0};
   blockIdx = {a->block, 0, 0};
-  riccati_backward_kernel<T, NX, NU>(a->A, a->B, a->d, a->g, a->H, a->gf, a->Hf, a->K, a->kff,
-                                     a->N, a->nx, a->nu, a->sA_b, a->sA_n, a->sB_b, a->sB_n, a->reg);
+  if constexpr (WIDE)
+    riccati_backward_wide<T>(a->A, a->B, a->d, a->g, a->H, a->gf, a->Hf, a->K, a->kff, a->N,
+                             a->nx, a->nu, a->sA_b, a->sA_n, a->sB_b, a->sB_n, a->reg);
+  else
+    riccati_backward_kernel<T, NX, NU>(a->A, a->B, a->d, a->g, a->H, a->gf, a->Hf, a->K, a->kff,
+                                       a->N, a->nx, a->nu, a->sA_b, a->sA_n, a->sB_b, a->sB_n,
+                                       a->reg);
   return nullptr;
 }
 
@@ -90,30 +96,36 @@ int run(const std::string& dir, int Bt, int N, int nx, int nu, bool invariant, d
   const auto gf = read_array<T>(dir + "/gf", (size_t)Bt * nx);
   const auto Hf = read_array<T>(dir + "/Hf", (size_t)Bt * nx * nx);
   std::vector<T> K(stages * nu * nx), kff(stages * nu);
-  if (Dims<NX, NU>{nx, nu}.smem_elems() * sizeof(T) > kSmemBytes) {
+  const bool wide = NX == 0 && nu > kRegisterMaxNu;
+  const long long elems = wide ? WideDims{nx, nu}.smem_elems() : Dims<NX, NU>{nx, nu}.smem_elems();
+  if (elems * (long long)sizeof(T) > (long long)kSmemBytes) {
     fprintf(stderr, "shape needs more shared memory than the emulation holds\n");
     return 3;
   }
-  static_assert(kWarps <= kMaxEmulatedWarps, "raise kMaxEmulatedWarps");
-  pthread_barrier_init(&g_block_barrier, nullptr, kThreads);
-  for (int w = 0; w < kWarps; ++w) pthread_barrier_init(&g_warp_barrier[w], nullptr, 32);
+  static_assert(kWarps <= kMaxEmulatedWarps && kWideWarps <= kMaxEmulatedWarps,
+                "raise kMaxEmulatedWarps");
+  const int threads = wide ? kWideThreads : kThreads;
+  pthread_barrier_init(&g_block_barrier, nullptr, threads);
+  for (int w = 0; w < threads / 32; ++w) pthread_barrier_init(&g_warp_barrier[w], nullptr, 32);
   for (int b = 0; b < Bt; ++b) {
     // all-ones bytes are NaNs: padding that leaked into a result would show
     memset(smem_raw, 0xff, sizeof(smem_raw));
-    std::vector<Launch<T>> args(kThreads);
-    std::vector<pthread_t> threads(kThreads);
-    for (int t = 0; t < kThreads; ++t) {
+    std::vector<Launch<T>> args(threads);
+    std::vector<pthread_t> tids(threads);
+    for (int t = 0; t < threads; ++t) {
       args[t] = {A.data(), B.data(), d.data(), g.data(), H.data(), gf.data(), Hf.data(),
                  K.data(), kff.data(), N, nx, nu,
                  invariant ? 0 : (long long)N * nx * nx, invariant ? 0 : (long long)nx * nx,
                  invariant ? 0 : (long long)N * nx * nu, invariant ? 0 : (long long)nx * nu,
                  (T)reg, b, t};
-      if (pthread_create(&threads[t], nullptr, cuda_thread<T, NX, NU>, &args[t]) != 0) {
+      if (pthread_create(&tids[t], nullptr,
+                         wide ? cuda_thread<T, NX, NU, true> : cuda_thread<T, NX, NU, false>,
+                         &args[t]) != 0) {
         fprintf(stderr, "cannot start thread %d\n", t);
         exit(1);
       }
     }
-    for (int t = 0; t < kThreads; ++t) pthread_join(threads[t], nullptr);
+    for (int t = 0; t < threads; ++t) pthread_join(tids[t], nullptr);
   }
   write_array(dir + "/K_out", K);
   write_array(dir + "/kff_out", kff);

@@ -1,10 +1,12 @@
 """Run the Riccati CUDA kernel's device code on the CPU, for its logic.
 
 ``csrc/riccati.cu`` is plain C++ apart from ``threadIdx``, ``__syncthreads``,
-``__shfl_sync``, ``rsqrtf`` and the two ``cp_async`` helpers.  The headers in
-``tools/emulate/`` define those for a host compiler (one pthread per CUDA
-thread, a pthread barrier per block and per warp), and ``harness.cpp`` runs
-one instantiation of the kernel block by block on arrays read from files.  So
+``__syncwarp``, ``__shfl_sync``, ``rsqrtf``, the two ``cp_async`` helpers and
+the L2 prefetch (a no-op here).  The headers in ``tools/emulate/`` define
+those for a host compiler (one pthread per CUDA thread, a pthread barrier per
+block and per warp), and ``harness.cpp`` runs one instantiation of the kernel
+block by block on arrays read from files (``f0``/``d0``: the register route
+up to nu 16, the wide route above, as the launcher picks).  So
 the indexing, the barriers' placement and the arithmetic of every
 instantiation can be held against the reference and the plain version in
 float64 without a card; the specialised instances, float32 on the card, can

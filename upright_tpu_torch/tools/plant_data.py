@@ -65,9 +65,10 @@ def plant_for(demo, arrangement=None, friction_model=None, **kw):
     return UprightSimulation(sc, **{**CPU64, **kw})
 
 
-def tick_inputs(sim, batch, seed=0, n_steps=10, spread=True, diverge=()):
-    """(frames, objects, params) of one tick of ``n_steps`` outer steps for
-    ``batch`` instances of the CPU float64 plant ``sim``.
+def tick_start(sim, batch, seed=0, spread=True, diverge=()):
+    """(state, command, params) at the start of one tick for ``batch``
+    instances of the CPU float64 plant ``sim``: the state settled for 8 outer
+    steps under a small command, its objects nudged, and the next command.
 
     ``spread``: mass and mu per instance and object within +-20% of their
     defaults, the CoM shifted horizontally within +-5 mm.  ``diverge``: the
@@ -91,12 +92,19 @@ def tick_inputs(sim, batch, seed=0, n_steps=10, spread=True, diverge=()):
     v = o.v + normal(1e-3, n, 3)
     for b in diverge:
         v[b, 0] = float("nan")
-    objects = o.replace(v=v, w=o.w + normal(1e-2, n, 3))
+    state = state.replace(objects=o.replace(v=v, w=o.w + normal(1e-2, n, 3)))
     cmd = cmd + normal(0.01, nq)
     if sim.v_limit is not None:
         cmd = torch.clamp(cmd, -sim.v_limit, sim.v_limit)
+    return state, cmd, params
+
+
+def tick_inputs(sim, batch, seed=0, n_steps=10, spread=True, diverge=()):
+    """(frames, objects, params) of one tick of ``n_steps`` outer steps from
+    ``tick_start``: the arguments of ``advance_objects``."""
+    state, cmd, params = tick_start(sim, batch, seed, spread, diverge)
     _t, _q, _v, frames = sim.robot_steps(state, cmd, n_steps)
-    return frames, objects, params
+    return frames, state.objects, params
 
 
 def objects_to(objects, device, dtype):

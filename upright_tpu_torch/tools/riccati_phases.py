@@ -8,8 +8,10 @@ checkout, a git-ignored place), builds the copy's ``csrc/riccati.cu`` with
 ``-DRICCATI_PHASE_CLOCK``, which turns the source's phase marks into
 ``clock64()`` reads (thread 0 of a one-block launch, stage 3), and launches it
 once per instance at batch 1.  Prints one JSON line: SM cycles per phase, as
-thread 0 sees them, each phase ending at the barrier that closes it.  At batch
-1 the kernel's time is N times such a stage.
+thread 0 sees them, each phase ending at the barrier that closes it (on the
+wide route, nu > 16, the elimination is two phases: the factorisation with the
+forward substitution, and the back substitution).  At batch 1 the kernel's
+time is N times such a stage.
 
 The clock reads cost a few tens of cycles each and keep the compiler from
 moving memory operations across them: read the split, not the last percent.
@@ -19,7 +21,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import re
 import shutil
 import subprocess
 import sys
@@ -34,7 +35,13 @@ LAUNCHES = [
     ("float32 runtime-sized 27/13", "float32", 27, 13, True),
     ("float32 runtime-sized 18/10", "float32", 18, 10, True),
     ("float64 runtime-sized 27/13", "float64", 27, 13, False),
-    ("float32 runtime-sized 27/45", "float32", 27, 45, False),
+    # the wide route (nu > 16): one panel and more, float32 and float64
+    ("float32 wide 27/21", "float32", 27, 21, False),
+    ("float32 wide 27/45", "float32", 27, 45, False),
+    ("float32 wide 27/93", "float32", 27, 93, False),
+    ("float64 wide 27/57", "float64", 27, 57, False),
+    ("float64 wide 27/93", "float64", 27, 93, False),
+    ("float64 wide 18/90", "float64", 18, 90, False),
 ]
 
 LAUNCHER = """
@@ -78,7 +85,9 @@ def main():
     out, pending = {}, None
     for line in proc.stdout.splitlines():
         if line.startswith("PHASES "):
-            pending = {k: int(v) for k, v in re.findall(r"(\w+) (\d+)", line[7:])}
+            names, cycles = line[7:].split(";")
+            pending = dict(zip(names.split(), map(int, cycles.split())))
+            pending["stage"] = sum(pending.values())
         elif line.startswith("LAUNCHED ") and pending is not None:
             out[line[9:]] = pending
             pending = None

@@ -49,6 +49,24 @@ CASES = [
     ("b_512x20x27x13_f64", 512, 20, 27, 13, True, "float64", False),
     ("b_64x20x27x45", 64, 20, 27, 45, True, "float32", False),
     ("b_64x200x27x13", 64, 200, 27, 13, True, "float32", False),
+    # the widths above 16 of the ral23 configs (chip_smoke.py phase 11) and of
+    # the robust plans (phase 16), at their batches there
+    ("b_512x20x27x21", 512, 20, 27, 21, True, "float32", False),
+    ("b_64x20x27x17", 64, 20, 27, 17, True, "float32", False),
+    ("b_64x20x27x25", 64, 20, 27, 25, True, "float32", False),
+    ("b_64x20x27x33", 64, 20, 27, 33, True, "float32", False),
+    ("b_64x20x27x37", 64, 20, 27, 37, True, "float32", False),
+    ("b_64x20x27x57", 64, 20, 27, 57, True, "float32", False),
+    ("b_64x20x27x93", 64, 20, 27, 93, True, "float32", False),
+    ("b_64x20x18x22", 64, 20, 18, 22, True, "float32", False),
+    ("b_64x20x18x34", 64, 20, 18, 34, True, "float32", False),
+    ("b_64x20x18x54", 64, 20, 18, 54, True, "float32", False),
+    ("b_64x20x18x90", 64, 20, 18, 90, True, "float32", False),
+    ("b_1x100x27x41", 1, 100, 27, 41, True, "float32", False),
+    ("b_1x30x18x38", 1, 30, 18, 38, True, "float32", False),
+    ("b_64x20x27x57_f64", 64, 20, 27, 57, True, "float64", False),
+    ("b_64x20x27x93_f64", 64, 20, 27, 93, True, "float64", False),
+    ("b_64x20x18x90_f64", 64, 20, 18, 90, True, "float64", False),
 ]
 
 
