@@ -16,7 +16,10 @@ holds every hand-written kernel against its plain PyTorch version:
   3. K1 against its plain version (float64): the main-path shapes in
      float32 and float64, the wide route (nu = 45 and 93) in both, and
      batches built to take the jitter fallback and to fail it (nu 26 and 70,
-     same NaN pattern);
+     same NaN pattern); then the public helpers no later phase calls (the
+     exact friction cone, BalanceModel.with_params, frame_motion at every
+     joint frame) on the card in both dtypes against their float64 CPU
+     values;
   4. the batched main path: demos/thing_demo.yaml, N = 20, batch 512, one
      warm-started AL-SQP iteration per solve, solves/s over 10 re-solves;
   5. the steady replan at batch 1: shift -> heal -> solve -> policy;
@@ -203,8 +206,11 @@ def main():
 
     import upright_tpu_torch.config as cfg  # the package pins full-float32 products
     from upright_tpu_torch import _build
+    from upright_tpu_torch.config.arrangement import parse_control_objects
+    from upright_tpu_torch.core import balance
     from upright_tpu_torch.core.logging import DataLogger
     from upright_tpu_torch.core.math import quat_to_rot, rot_to_quat
+    from upright_tpu_torch.kinematics.robot import build_robot_model
     from upright_tpu_torch.ocp.problem import build_problem
     from upright_tpu_torch.ocp.reference import TargetTrajectory, stack_targets
     from upright_tpu_torch.parallel.batch import (
@@ -447,6 +453,54 @@ def main():
             log(f"  ok: {label} CUDA tensors raise (no quiet fallback to the plain version)")
         else:
             raise AssertionError(f"riccati_backward accepted {label} CUDA tensors")
+
+    # the public helpers that no phase below calls (the exact friction cone,
+    # BalanceModel.with_params, KinematicChain.frame_motion at every joint
+    # frame) on CUDA tensors in both dtypes against their float64 CPU values,
+    # as a fraction of the largest entry
+    t0 = time.perf_counter()
+    arr_conf = cfg.load_config(cfg.resolve_package_path(
+        {"package": "configs", "path": "arrangements.yaml"}))
+    arr_conf["balancing"] = {"arrangement": "box_arch", "frictionless": False}
+    chain = build_robot_model(cfg.load_config(cfg.resolve_package_path(
+        {"package": "configs", "path": "robots/thing.yaml"}))["controller"]["robot"]).chain
+    arr_model = parse_control_objects(arr_conf, device="cpu", dtype=torch.float64)[0]
+    n_obj, n_c = arr_model.num_objects, arr_model.num_contacts
+    rng = np.random.default_rng(0)
+    M = rng.standard_normal((4, n_obj, 3, 3))
+    helper_in = (rng.standard_normal((4, n_c, 3)), rng.uniform(0.1, 2.0, (4, n_obj)),
+                 0.05 * rng.standard_normal((4, n_obj, 3)), 0.01 * M @ np.swapaxes(M, -1, -2),
+                 *rng.standard_normal((3, 4, 9)))
+
+    def helpers(device, dtype):
+        model = parse_control_objects(arr_conf, device=device, dtype=dtype)[0]
+        forces, m, c, inertia, q, v, a = (torch.as_tensor(x, device=device, dtype=dtype)
+                                          for x in helper_in)
+        out = {"exact cone": balance.contact_force_constraints_exact(model, forces),
+               "with_params": model.with_params(m, c, inertia).params}
+        for name in chain.joint_names:
+            f = chain.frame_motion(name, q, v, a)
+            out[f"frame_motion {name}"] = torch.cat([f.R.flatten(-2), f.p, f.v, f.w, f.a, f.al], -1)
+        return out
+
+    helper_ref = helpers("cpu", torch.float64)
+    worst = {}
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        got = helpers(dev, dtype)
+        torch.cuda.synchronize()
+        errs = {key: float((got[key].cpu().double() - ref).abs().max())
+                / max(1.0, float(ref.abs().max())) for key, ref in helper_ref.items()}
+        key = max(errs, key=errs.get)
+        worst[str(dtype)[6:]] = errs[key]
+        check(all(got[k].shape == ref.shape and got[k].dtype == dtype
+                  for k, ref in helper_ref.items()) and errs[key] <= tol,
+              f"the helpers on the card in {dtype} within {tol} of their float64 CPU values "
+              f"(largest: {key}, {errs[key]:.2e})")
+    log(f"  the exact cone (box_arch), with_params and frame_motion at "
+        f"{len(chain.joint_names)} frames on the card, batch 4: largest error float64 "
+        f"{worst['float64']:.2e}, float32 {worst['float32']:.2e} of the largest entry, "
+        f"{time.perf_counter() - t0:.2f} s")
+    results["helpers_max_err"] = worst
 
     # -- 4. batched main path ----------------------------------------------
     log(f"== 4. batched solve: thing_demo, N = {HORIZON}, batch {BATCH}")
@@ -1100,6 +1154,11 @@ def main():
         timing, reading = k1_on_solver_data(label, data, path)
         solver_widths[label] = {**timing, "errors": reading, "config": path}
         width_readings.append((label, reading))
+    # the same readings on phase 3's seeded 27/45 data (numpy seed 5), a
+    # reading only: phase 3 holds the kernel there
+    timing, reading = k1_on_solver_data("27x45", kernel_inputs["form_b_64x20x27x45"],
+                                        "seeded data, tools/stage_data.py seed 5")
+    solver_widths["27x45_seeded"] = {**timing, "errors": reading, "config": None}
     # every reading is printed before the first check.  Tolerances: the
     # float64 kernel at every width, phase 3's float64 tolerance, 1e-10 of
     # the largest entry.

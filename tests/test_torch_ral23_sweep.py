@@ -147,3 +147,82 @@ def test_main_writes_only_beside_out(monkeypatch, tmp_path):
     assert mirror["_provenance"]["mirror_of"] == "ral23_results.json"
     assert mirror["static_obstacles"] == saved["static_obstacles"]
     assert "static_obstacles — 1 runs" in out.with_suffix(".md").read_text()
+
+
+class Recorder:
+    """Stand-in for the ``jax`` module in the JAX script: ``jit`` records what
+    each jitted call returns (its last call returns the loop's (final carry,
+    metrics)); every other name is ``jax``'s own."""
+
+    def __init__(self, jax_module):
+        self._jax = jax_module
+        self.returned = []
+
+    def __getattr__(self, name):
+        return getattr(self._jax, name)
+
+    def jit(self, fn, *args, **kwargs):
+        jitted = self._jax.jit(fn, *args, **kwargs)
+
+        def call(*a, **kw):
+            out = jitted(*a, **kw)
+            self.returned.append(out)
+            return out
+
+        return call
+
+
+# The float64 EE paths of the two packages: aligned_dice's within 1e-12 over
+# all 500 ticks; robust_arch_arm_only's (an unreachable waypoint) part by
+# rounding alone, the gap growing smoothly, by about 10x every 20 ticks
+# (past 1e-12 at tick 47, 1e-10 at 85, 1e-8 at 130, 0.1 m at 274)
+F1_AGREE_TICKS = 80
+F1_AGREE_TOL = 1e-8
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("group", ["aligned_dice", "robust_arch_arm_only"])
+def test_freespace_f1_leaves_match_reference_at_full_length(jsweep, monkeypatch, group):
+    """The two freespace leaves whose outcome the JAX record (matmul
+    precision "high") and the port on the card disagree on (ROADMAP F1), at
+    full length (5 s, 500 ticks) through both scripts' ``run_group`` in
+    float64 on the CPU: ``failed`` per leaf is the same, and the EE paths
+    agree over the first ticks.  Prints the first tick at which the EE paths
+    part by each of 1e-12 ... 1e-1 m."""
+    import jax
+
+    recorder = Recorder(jax)
+    monkeypatch.setattr(jsweep, "jax", recorder)
+    monkeypatch.setattr(jsweep, "round", lambda x, ndigits=None: x, raising=False)
+    runs = []
+    build = ral23_sweep.build_device_loop
+
+    def recording_build(*args, **kwargs):
+        init_carry, run = build(*args, **kwargs)
+
+        def recording_run(*a, **kw):
+            runs.append(run(*a, **kw))
+            return runs[-1]
+
+        return init_carry, recording_run
+
+    monkeypatch.setattr(ral23_sweep, "build_device_loop", recording_build)
+    paths = ral23_sweep.discover_groups(REPO / "configs" / "ral23" / "freespace")[group]
+    stats = {}
+    trows = ral23_sweep.run_group(group, paths, device="cpu", dtype=torch.float64, stats=stats)
+    jrows = jsweep.run_group(group, paths)
+    assert stats["ticks"] == 500
+    t_path = runs[-1][1].r_ew_w.numpy().transpose(1, 0, 2)  # (B, ticks, 3)
+    j_path = np.asarray(recorder.returned[-1][1].r_ew_w)  # (B, ticks, 3), the vmap's
+    gap = np.abs(t_path - j_path).max(-1)
+    for b, (t, j) in enumerate(zip(trows, jrows)):
+        firsts = {tol: int(np.argmax(gap[b] > tol)) if (gap[b] > tol).any() else None
+                  for tol in (1e-12, 1e-10, 1e-8, 1e-6, 1e-4, 1e-2, 1e-1)}
+        print(f"{t['leaf']}: port failed {t['failed']} (disp {max(stats['obj_disp_m'][b]):.4g} m, "
+              f"ee_err {stats['ee_err_m'][b]:.4g} m), JAX failed {j['failed']} (disp "
+              f"{j['max_obj_disp_m']:.4g} m, ee_err {j['ee_err_m']:.4g} m); first tick the EE "
+              f"paths part by more than: {firsts}")
+    for b, (t, j) in enumerate(zip(trows, jrows)):
+        assert t["leaf"] == j["leaf"]
+        assert t["failed"] == j["failed"], (t, j)
+        assert gap[b, :F1_AGREE_TICKS].max() <= F1_AGREE_TOL, (t["leaf"], gap[b, :F1_AGREE_TICKS])

@@ -20,7 +20,7 @@ import math
 import torch
 
 from upright_tpu_torch.core.math import cross, dC_dtt, matvec
-from upright_tpu_torch.core.rigid_body import params_to_body
+from upright_tpu_torch.core.rigid_body import body_to_params, params_to_body
 
 NUM_FRICTION_CONSTRAINTS_PER_CONTACT = 2
 NUM_LINEARIZED_FRICTION_CONSTRAINTS_PER_CONTACT = 5
@@ -38,6 +38,15 @@ class EEState:
     w_ew_w: torch.Tensor  # (..., 3) angular velocity (world frame)
     a_ew_w: torch.Tensor  # (..., 3) linear (classical) acceleration
     alpha_ew_w: torch.Tensor  # (..., 3) angular acceleration
+
+    @staticmethod
+    def zero(device="cpu", dtype=torch.float64):
+        """The EE at rest at the world origin, unrotated."""
+        def z():
+            return torch.zeros(3, device=device, dtype=dtype)
+
+        return EEState(C_we=torch.eye(3, device=device, dtype=dtype), r_ew_w=z(), v_ew_w=z(),
+                       w_ew_w=z(), a_ew_w=z(), alpha_ew_w=z())
 
 
 @dataclasses.dataclass
@@ -80,6 +89,11 @@ class BalanceModel:
     def replace(self, **changes):
         return dataclasses.replace(self, **changes)
 
+    def with_params(self, masses, coms, inertias):
+        """A copy with new inertial parameters (robust scenarios): masses
+        (..., n_obj), coms (..., n_obj, 3), inertias (..., n_obj, 3, 3)."""
+        return self.replace(params=body_to_params(masses, coms, inertias))
+
 
 # ---------------------------------------------------------------------------
 # friction cones
@@ -90,6 +104,16 @@ def expand_frictionless_forces(model: BalanceModel, forces):
     """Scalar normal-force magnitudes (..., n_c) -> 3-D forces
     (..., n_c, 3): f_i = s_i * n_i."""
     return forces.unsqueeze(-1) * model.normal
+
+
+def contact_force_constraints_exact(model: BalanceModel, forces):
+    """Exact friction cone, 2 rows per contact: ``f_n >= 0`` and
+    ``mu^2 f_n^2 - |f_t|^2 >= 0`` with ``|f_t|^2 = f.f - f_n^2``.  forces:
+    (..., n_c, 3) in the EE frame; returns (..., 2 n_c), the rows of each
+    contact together."""
+    f_n = (model.normal * forces).sum(-1)  # (..., n_c)
+    f_t_sq = (forces * forces).sum(-1) - f_n * f_n
+    return torch.stack([f_n, model.mu * model.mu * f_n * f_n - f_t_sq], dim=-1).flatten(-2)
 
 
 def contact_force_constraints_linearized(model: BalanceModel, forces):

@@ -77,6 +77,15 @@ class FrameMotion:
     al: torch.Tensor  # (..., 3) angular acceleration
 
 
+def _batched(f: FrameMotion, lead) -> FrameMotion:
+    """``f`` with every field given q's batch shape ``lead``: a frame before
+    the first actuated joint keeps unbatched entries."""
+    return FrameMotion(
+        R=f.R.expand(lead + (3, 3)),
+        **{n: getattr(f, n).expand(lead + (3,)) for n in ("p", "v", "w", "a", "al")},
+    )
+
+
 class KinematicChain:
     """Serial chain with a flat actuated-DOF vector.
 
@@ -182,20 +191,19 @@ class KinematicChain:
                 break
         return frames
 
+    def _frames(self, q, v=None, a=None, upto=None):
+        """``_propagate`` with v and a zero where not given."""
+        zero = torch.zeros_like(q)
+        return self._propagate(q, zero if v is None else v, zero if a is None else a, upto=upto)
+
     def ee_motion(self, q, v=None, a=None) -> FrameMotion:
         """Pose/velocity/acceleration of the final (tool) frame."""
-        if v is None:
-            v = torch.zeros_like(q)
-        if a is None:
-            a = torch.zeros_like(q)
-        f = self._propagate(q, v, a)[-1]
-        # a chain whose leading joints are fixed keeps unbatched entries
-        # until the first actuated joint; give every field q's batch shape
-        lead = q.shape[:-1]
-        return FrameMotion(
-            R=f.R.expand(lead + (3, 3)),
-            **{n: getattr(f, n).expand(lead + (3,)) for n in ("p", "v", "w", "a", "al")},
-        )
+        return _batched(self._frames(q, v, a)[-1], q.shape[:-1])
+
+    def frame_motion(self, name, q, v=None, a=None) -> FrameMotion:
+        """Motion of a named joint frame; an unknown name raises ValueError."""
+        index = self.joint_names.index(name)
+        return _batched(self._frames(q, v, a, upto=name)[index], q.shape[:-1])
 
     def forward(self, q) -> Tuple[torch.Tensor, torch.Tensor]:
         """EE pose only: (R, p)."""
@@ -204,10 +212,8 @@ class KinematicChain:
 
     def link_positions(self, q) -> torch.Tensor:
         """Positions of every joint frame origin, (..., n_joints, 3)."""
-        zero = torch.zeros_like(q)
-        frames = self._propagate(q, zero, zero)
         lead = q.shape[:-1]
-        return torch.stack([f.p.expand(lead + (3,)) for f in frames], dim=-2)
+        return torch.stack([f.p.expand(lead + (3,)) for f in self._frames(q)], dim=-2)
 
     @property
     def joint_names(self):

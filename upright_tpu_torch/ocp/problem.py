@@ -64,6 +64,16 @@ class UprightDims:
 
 
 @dataclasses.dataclass
+class CollisionSphere:
+    """A collision sphere attached to a named chain frame.  ``_CollisionRows``
+    keeps the config's spheres as stacked tensors; this names one."""
+
+    link: str
+    offset: np.ndarray
+    radius: float
+
+
+@dataclasses.dataclass
 class UprightProblem:
     """Everything needed to run the MPC: the OCP + the functions that make its params."""
 

@@ -22,6 +22,7 @@ cannot even be held statically?".  The constraint Jacobians come from
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import numpy as np
 import torch
@@ -66,14 +67,13 @@ def minimum_mu(config, mu0=1.0, device="cuda", dtype=torch.float64):
     gravity = tens(cfg.parse_array(config["controller"].get("gravity", [0, 0, -9.81])))
     pair_idx_t = torch.as_tensor(pair_idx, device=dev)
     sqrt_mu0 = tens(np.sqrt(mu0))
-    zero3 = tens(np.zeros(3))
+    ee_rest = bal.EEState.zero(device=dev, dtype=dtype)
 
     def split(z):
         return z[:3], z[3:3 + n_pair], z[3 + n_pair:].reshape(n_c, 3)
 
     def ee_state(rpy):
-        return bal.EEState(C_we=core_math.rpy_to_rot(rpy), r_ew_w=zero3, v_ew_w=zero3,
-                           w_ew_w=zero3, a_ew_w=zero3, alpha_ew_w=zero3)
+        return dataclasses.replace(ee_rest, C_we=core_math.rpy_to_rot(rpy))
 
     def eq_fn(z):
         rpy, _, forces = split(z)

@@ -102,3 +102,37 @@ def solver_stage_data(config_path, batch, N=None, iterations=2, seed=0, device="
           batch_warm_starts(prob.ocp, x0, device=device, dtype=dtype),
           device=device, dtype=dtype, backward=capture)
     return tuple(captured)
+
+
+def ral25_stage_data(iterations=5, device="cuda", dtype=None):
+    """The stage data the solver hands the backward pass on the ral25 robust
+    plan of ``chip_smoke.py`` phase 16 (``scripts/ral25_study.py``
+    ``build_study_config(0.20)``, robust variant, its first waypoint, 10 s:
+    1x100x27x41, stage-invariant A and B), after ``iterations`` SQP
+    iterations of the plan and one more with a capturing plain backward pass.
+    Float32 unless ``dtype`` says otherwise; on the CPU it is deterministic.
+    """
+    import torch
+
+    from upright_tpu_torch.parallel.batch import broadcast_params
+    from upright_tpu_torch.robust.planning import plan_robust
+    from upright_tpu_torch.scripts.ral25_study import COM_XY, build_study_config
+    from upright_tpu_torch.solver.al import ALConfig, solve
+    from upright_tpu_torch.solver.riccati import riccati_backward_plain
+
+    dtype = torch.float32 if dtype is None else dtype
+    height = 0.20
+    config = build_study_config(height)
+    config["controller"]["waypoints"] = [
+        {"time": 0, "position": [-2.0, 1.0, 0.0], "orientation": [0, 0, 0, 1]}]
+    prob, sol, _ = plan_robust(config, com_half_extents=[[COM_XY, COM_XY, height / 2]],
+                               duration=10.0, iterations=iterations, device=device, dtype=dtype)
+    captured = []
+
+    def capture(*args, **kw):
+        captured[:] = [a.clone() for a in args]
+        return riccati_backward_plain(*args, **kw)
+
+    solve(prob.ocp, ALConfig(iterations=1), broadcast_params(prob.stage_params(0.0), 1),
+          prob.x0[None], sol.state, device=device, dtype=dtype, backward=capture)
+    return tuple(captured)
