@@ -228,7 +228,6 @@ def main():
     )
     from upright_tpu_torch.robust.verification import count_failures
     from upright_tpu_torch.scripts import launch_stack, mpc_sim, ral23_sweep, runtime_demo
-    from upright_tpu_torch.scripts.ral25_study import COM_XY, build_study_config
     from upright_tpu_torch.sim import contact
     from upright_tpu_torch.sim import simulation as sim_mod
     from upright_tpu_torch.sim.simulation import UprightSimulation
@@ -237,7 +236,7 @@ def main():
     from upright_tpu_torch.solver.mpc import ControllerManager, MPCSettings
     from upright_tpu_torch.solver.ocp import SolverState
     from upright_tpu_torch.solver.pscan import parallel_backward_pass
-    from upright_tpu_torch.tools import solve_phases
+    from upright_tpu_torch.tools import k1_float32_error, solve_phases
     from upright_tpu_torch.tools.plant_data import (
         F32_TOL,
         float32_witness,
@@ -247,7 +246,11 @@ def main():
         tick_inputs,
     )
     from upright_tpu_torch.tools.stage_data import (
+        RAL25_HEIGHT,
+        RAL25_WAYPOINT,
+        capture_stage_data,
         fallback_batch,
+        ral25_plan_config,
         random_batch,
         solver_stage_data,
         stage_data,
@@ -1452,7 +1455,8 @@ def main():
                                  "executor": stack_out["executor"]})
 
     # -- 16. robust planning: the ral25 path ------------------------------------------
-    RB_H, RB_WP, RB_DURATION, RB_ITERATIONS, RB_SCALES = 0.20, [-2.0, 1.0, 0.0], 10.0, 60, (1.0, 0.5, 0.1)
+    RB_H, RB_WP, RB_DURATION, RB_ITERATIONS, RB_SCALES = (
+        RAL25_HEIGHT, list(RAL25_WAYPOINT), 10.0, 60, (1.0, 0.5, 0.1))
     # the JAX package's record of this plan (docs/ral25_results_h20.json,
     # robust variant, this waypoint; the same 0.2861 in float64 on a CPU at
     # 60 and at 120 iterations: its line search stalls there)
@@ -1464,23 +1468,7 @@ def main():
     PSCAN_RTOL_F64 = 1e-5
     log(f"== 16. robust planning: the ral25 study's {RB_H * 100:.0f} cm box, robust variant, "
         f"waypoint {RB_WP}, {RB_DURATION:.0f} s [{card_line}]")
-    rb_box = [[COM_XY, COM_XY, RB_H / 2]]
-    rb_config = build_study_config(RB_H)
-    rb_config["controller"]["waypoints"] = [
-        {"time": 0, "position": RB_WP, "orientation": [0, 0, 0, 1]}]
-
-    def plan_stage_data(problem, state):
-        """The stage data the solver hands the backward pass at ``state``:
-        one SQP iteration with a capturing plain backward (no launch)."""
-        captured = []
-
-        def capture(*a, **kw):
-            captured[:] = [t.clone() for t in a]
-            return riccati.riccati_backward_plain(*a, **kw)
-
-        solve(problem.ocp, ALConfig(iterations=1), broadcast_params(problem.stage_params(0.0), 1),
-              problem.x0[None], state, backward=capture)
-        return tuple(captured)
+    rb_config, rb_box = ral25_plan_config()
 
     riccati.launch_count = 0
     t0 = time.perf_counter()
@@ -1506,13 +1494,13 @@ def main():
           f"eq_viol within 1.25x of the JAX package's plan of the same problem ({RB_JAX_EQ_VIOL:.4f})")
 
     # K1 and the log-depth backward pass on the plan's own stage data
-    rb_data = plan_stage_data(rb_prob, rb_sol.state)
+    rb_data = capture_stage_data(rb_prob, rb_sol.state)
     rb_k1, rb_k1_err = k1_on_solver_data("27x41", rb_data, "ral25 robust plan")
     ur_config = cfg.load_config(cfg.resolve_package_path(
         {"package": "configs", "path": "demos/ur10_demo.yaml"}))
     ur_prob, ur_sol, _ = plan_robust(ur_config, com_half_extents=[[0.02, 0.02, 0.04]],
                                      duration=3.0, iterations=5)
-    ur_data = plan_stage_data(ur_prob, ur_sol.state)
+    ur_data = capture_stage_data(ur_prob, ur_sol.state)
     check(tuple(ur_data[2].shape) == (1, 30, 18) and ur_data[1].shape[-1] == 38,
           "ur10_demo robust plan (scripts/robust_planning.py): 1x30x18x38")
     ur_k1, ur_k1_err = k1_on_solver_data("18x38", ur_data, "ur10_demo robust plan")
@@ -1546,6 +1534,29 @@ def main():
     check(all(pscan_err[f"{w}_float64"] <= PSCAN_RTOL_F64
               and np.isfinite(pscan_err[f"{w}_float32"]) for w in ("27x41", "18x38")),
           f"pscan float64 within {PSCAN_RTOL_F64} of the largest entry, float32 finite")
+
+    # K1 against the JAX package's own Pallas kernel on the same bits (ROADMAP
+    # K1-e): the plan's stage data committed beside tools/k1_float32_error.py
+    # (made on a CPU in float32), where the JAX kernel in float32 reads
+    # K1E_JAX_PALLAS of the largest entry against the float64 plain version
+    # (tests/test_torch_k1_float32_error.py, interpret mode on a CPU)
+    K1E_JAX_PALLAS, K1E_FACTOR = 2.3496e-5, 2.0
+    k1e_arrays = k1_float32_error.load_or_make()
+    k1e_ref = k1_float32_error.reference(k1e_arrays)
+    k1e_in = [torch.as_tensor(a, device=dev) for a in k1e_arrays]
+    k1e_err = {
+        name: k1_float32_error.relative_error(
+            *(t.cpu() for t in fn(*k1e_in, reg=k1_float32_error.REG)), *k1e_ref)
+        for name, fn in (("k1", riccati.riccati_backward),
+                         ("plain", riccati.riccati_backward_plain),
+                         ("pscan", parallel_backward_pass))}
+    log(f"  K1-e, the committed ral25 stage data in float32, of the largest entry "
+        f"{float(np.abs(k1e_ref[0]).max()):.4g}: K1 {k1e_err['k1']:.4e}, plain version "
+        f"{k1e_err['plain']:.4e}, pscan {k1e_err['pscan']:.4e}; the JAX Pallas kernel "
+        f"{K1E_JAX_PALLAS:.3g} (CPU): K1 at {k1e_err['k1'] / K1E_JAX_PALLAS:.2f}x [{card_line}]")
+    check(k1e_err["k1"] <= K1E_FACTOR * K1E_JAX_PALLAS,
+          f"K1-e: float32 kernel within {K1E_FACTOR}x of the JAX Pallas kernel's error on the "
+          f"same stage data ({K1E_JAX_PALLAS})")
 
     # float64 plans of 10 iterations through pscan against the same through
     # K1: at tests/test_backward_options.py's case (ur10_demo, N 40, route
@@ -1677,6 +1688,7 @@ def main():
         "plan_ms": rb_plan_s * 1e3, "plan_ms_per_iteration": rb_plan_s * 1e3 / RB_ITERATIONS,
         "plan_launches_k1": launches_rb_plan, "plan_eq_viol": rb_eq,
         "k1_27x41": {**rb_k1, "errors": rb_k1_err}, "k1_18x38": {**ur_k1, "errors": ur_k1_err},
+        "k1e_committed_data": k1e_err,
         "pscan_err": pscan_err, "pscan_vs_k1_plan_diff_f64": plan_diff, "times": pscan_times,
         "plan_f64_ms_per_iteration": plan_f64_ms,
         "sweep_s": rb_sweep_s, "sweep_ms_per_tick": rb_sweep_s * 1e3 / rb_ticks,

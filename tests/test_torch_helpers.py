@@ -79,8 +79,8 @@ def test_exact_cone_matches_batched():
     rng = np.random.default_rng(4)
     forces = rng.standard_normal((2, 3, n_c, 3))
     out = tbal.contact_force_constraints_exact(tm, t64(forces))
-    ref = jax.vmap(jax.vmap(lambda f: jbal.contact_force_constraints_exact(jm, f)))(
-        jnp.asarray(forces))
+    ref = jax.jit(jax.vmap(lambda f: jbal.contact_force_constraints_exact(jm, f)))(
+        jnp.asarray(forces.reshape(6, n_c, 3))).reshape(2, 3, -1)
     assert out.shape == ref.shape == (2, 3, 2 * n_c)
     np.testing.assert_allclose(out.numpy(), ref, **TOL)
 
@@ -132,9 +132,11 @@ def test_with_params_matches_batched():
         jscen = jm.with_params(m, c, i)
         return jscen.params, jbal.object_dynamics_constraints(jscen, f, e, jnp.asarray(GRAVITY))
 
-    jee = jbal.EEState(**{k: jnp.asarray(v) for k, v in ee.items()})
-    jparams, jres = jax.vmap(jax.vmap(jax_one))(
-        jnp.asarray(masses), jnp.asarray(coms), jnp.asarray(inertias), jnp.asarray(forces), jee)
+    # one vmap over the 8 scenarios laid flat
+    flat = lambda x: jnp.asarray(x.reshape((8,) + x.shape[2:]))  # noqa: E731
+    jee = jbal.EEState(**{k: flat(v) for k, v in ee.items()})
+    jparams, jres = (r.reshape((2, 4) + r.shape[1:]) for r in jax.jit(jax.vmap(jax_one))(
+        flat(masses), flat(coms), flat(inertias), flat(forces), jee))
     np.testing.assert_allclose(scen.params.numpy(), jparams, **TOL)
     res = tbal.object_dynamics_constraints(
         scen, t64(forces), tbal.EEState(**{k: t64(v) for k, v in ee.items()}), t64(GRAVITY))
@@ -165,7 +167,10 @@ def motion_fields(f):
 @pytest.mark.parametrize("name", ["thing", "ur10"])
 def test_frame_motion_matches(name):
     """Every joint frame, at random (q, v, a) batched (5, 2) and unbatched,
-    and with v and a left out, against the JAX chain."""
+    and with v and a left out, against the JAX chain.  The JAX frames come
+    from one compiled, vmapped pass of its chain, each the frame that its
+    ``frame_motion`` returns (checked on the first frame): a call per frame
+    would take seconds."""
     conf = robot_conf(name)
     jchain, tchain = jbuild(conf).chain, tbuild(conf).chain
     nq = jbuild(conf).nq
@@ -173,21 +178,27 @@ def test_frame_motion_matches(name):
     q, v, a = (rng.standard_normal((5, 2, nq)) for _ in range(3))
     jq, jv, ja = (jnp.asarray(x) for x in (q, v, a))
     assert tchain.joint_names == jchain.joint_names
-    for frame in tchain.joint_names:
+    frames = tchain.joint_names
+    every_frame = jax.jit(jax.vmap(jax.vmap(lambda q_, v_, a_: [
+        motion_fields(f) for f in jchain._propagate(q_, v_, a_)])))
+    refs = every_frame(jq, jv, ja)
+    refs_rest = every_frame(jq, jnp.zeros_like(jq), jnp.zeros_like(jq))
+    first = jax.jit(lambda *x: motion_fields(jchain.frame_motion(frames[0], *x)))(
+        jq[1, 0], jv[1, 0], ja[1, 0])
+    for got, want in zip(first, refs[0]):
+        np.testing.assert_allclose(np.asarray(got), np.asarray(want)[1, 0], **TOL)
+    assert len(refs) == len(frames)
+    for frame, ref, ref_rest in zip(frames, refs, refs_rest):
         out = tchain.frame_motion(frame, t64(q), t64(v), t64(a))
-        ref = jax.vmap(jax.vmap(lambda q_, v_, a_: motion_fields(
-            jchain.frame_motion(frame, q_, v_, a_))))(jq, jv, ja)
         one = tchain.frame_motion(frame, t64(q[1, 0]), t64(v[1, 0]), t64(a[1, 0]))
         rest = tchain.frame_motion(frame, t64(q[1, 0]))
-        ref_rest = jchain.frame_motion(frame, jq[1, 0])
-        for field, want in zip(MOTION_FIELDS, ref):
+        for field, want, want_rest in zip(MOTION_FIELDS, ref, ref_rest):
             got, want = getattr(out, field), np.asarray(want)
             assert got.shape == want.shape, (frame, field)
             np.testing.assert_allclose(got.numpy(), want, err_msg=f"{frame} {field}", **TOL)
             np.testing.assert_allclose(getattr(one, field).numpy(), want[1, 0],
                                        err_msg=f"{frame} {field}", **TOL)
-            np.testing.assert_allclose(getattr(rest, field).numpy(),
-                                       np.asarray(getattr(ref_rest, field)),
+            np.testing.assert_allclose(getattr(rest, field).numpy(), np.asarray(want_rest)[1, 0],
                                        err_msg=f"{frame} {field}", **TOL)
     with pytest.raises(ValueError):
         tchain.frame_motion("no_such_frame", t64(q))

@@ -12,10 +12,19 @@ against the JAX package's (``scripts/ral23_sweep.py``), in float64 on the CPU.
   JAX rows do;
 - ``main --out`` writes its JSON (with ``_provenance``), its table and the
   stiction mirror beside ``--out`` and nothing else.
+
+Slow, at full length: the two freespace groups whose outcome the JAX record
+and the port disagreed on, in float64 through both scripts; the knife-edge
+leaf ``robust_arch_arm_only`` from starts a rounding step apart in each
+package; and its float32 departure from float64 in both packages.
 """
 
 import importlib.util
 import json
+import os
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -226,3 +235,142 @@ def test_freespace_f1_leaves_match_reference_at_full_length(jsweep, monkeypatch,
         assert t["leaf"] == j["leaf"]
         assert t["failed"] == j["failed"], (t, j)
         assert gap[b, :F1_AGREE_TICKS].max() <= F1_AGREE_TOL, (t["leaf"], gap[b, :F1_AGREE_TICKS])
+
+
+# One realisation of tools/ral23_rounding.py's leaf through the JAX script's
+# ``run_group`` on the CPU at matmul precision "highest": argv repo, seed (the
+# plant's home pose moved as that tool moves it), dtype
+JAX_REALISATION = r"""
+import importlib.util, json, os, sys
+os.environ["BENCH_CACHE_DIR"] = ""
+import jax
+repo, seed, dtype = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+jax.config.update("jax_enable_x64", dtype == "float64")
+jax.config.update("jax_default_matmul_precision", "highest")
+sys.path.insert(0, repo)
+spec = importlib.util.spec_from_file_location(
+    "jax_ral23_sweep", os.path.join(repo, "scripts", "ral23_sweep.py"))
+sweep = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(sweep)
+import upright_tpu.config as jcfg
+from upright_tpu_torch.tools.ral23_rounding import FAMILY, GROUP, HOME_EPS, perturbed_loader
+sweep.cfg.load_config = perturbed_loader(jcfg.load_config, seed)
+sweep.round = lambda x, ndigits=None: x
+rows = sweep.run_group(GROUP, sweep.discover_groups(FAMILY)[GROUP])
+print("REALISATION " + json.dumps({
+    "group": GROUP, "seed": seed, "home_eps": HOME_EPS, "device": "cpu", "dtype": dtype,
+    "leaves": [{"leaf": r["leaf"], "failed": bool(r["failed"]), "ee_err_m": float(r["ee_err_m"]),
+                "max_obj_disp_m": float(r["max_obj_disp_m"])} for r in rows]}))
+"""
+F1_ROUNDING_SEEDS = range(12)
+
+
+def realisation(package, seed, dtype):
+    """One realisation of ``robust_arch_arm_only`` on the CPU in a process of
+    its own (one thread a process for the port): the JSON that it prints."""
+    if package == "jax":
+        cmd = [sys.executable, "-c", JAX_REALISATION, str(REPO), str(seed), dtype]
+    else:
+        cmd = [sys.executable, str(REPO / "upright_tpu_torch" / "tools" / "ral23_rounding.py"),
+               "--seeds", str(seed), "--device", "cpu", "--dtype", dtype]
+    env = dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1")
+    out = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=3600, check=True)
+    line = next(x for x in out.stdout.splitlines() if x.startswith("REALISATION "))
+    return json.loads(line[len("REALISATION "):])
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("package", ["jax", "port"])
+def test_robust_arch_arm_only_is_a_draw_of_rounding(package):
+    """``robust_arch_arm_only`` at full length through one package's
+    ``run_group`` on the CPU, in float32 and in float64, from 12 starts that
+    differ by about one float32 rounding step (``tools/ral23_rounding.py``;
+    seed 0 is the config as it stands), six processes at a time: among its 24
+    realisations the package both holds and fails the leaf.  Prints each
+    realisation and the failed seeds per dtype."""
+    jobs = [(dtype, seed) for dtype in ("float32", "float64") for seed in F1_ROUNDING_SEEDS]
+    with ThreadPoolExecutor(6) as pool:
+        outs = list(pool.map(
+            lambda job: realisation(package, job[1], job[0]), jobs))
+    failed = {"float32": [], "float64": []}
+    for (dtype, seed), out in zip(jobs, outs):
+        (leaf,) = out["leaves"]
+        print(f"{package} {dtype} seed {seed}: failed {leaf['failed']}, largest displacement "
+              f"{leaf['max_obj_disp_m']:.4g} m, ee_err {leaf['ee_err_m']:.4g} m")
+        assert np.isfinite(leaf["ee_err_m"])
+        if leaf["failed"]:
+            failed[dtype].append(seed)
+    print(f"{package}, failed of {len(F1_ROUNDING_SEEDS)} realisations: " + ", ".join(
+        f"{dtype} {len(seeds)} (seeds {seeds})" for dtype, seeds in failed.items()))
+    n_failed = sum(len(seeds) for seeds in failed.values())
+    assert 0 < n_failed < len(jobs), failed
+
+
+def duration_loader(load, ticks):
+    """``load_config`` with each experiment leaf cut to ``ticks`` ticks at
+    100 Hz, its horizon as shipped."""
+
+    def load_cut(path, *args, **kwargs):
+        config = load(path, *args, **kwargs)
+        if kwargs.get("depth", 0) == 0 and "simulation" in config:
+            config["simulation"]["duration"] = ticks / RATE
+        return config
+
+    return load_cut
+
+
+F1_NOISE_TICKS = 30
+
+
+@pytest.mark.slow
+def test_robust_arch_arm_only_float32_departs_from_float64_as_the_reference(jsweep, monkeypatch):
+    """How far float32 carries ``robust_arch_arm_only`` off its float64 path
+    over the first 30 ticks, in each package (the JAX script at matmul
+    precision "highest"): the two packages' float32 EE paths agree within
+    two float32 rounding steps over the first 5 ticks, and the port's float32
+    departure from float64 is within 2x of the JAX package's at ticks 10, 20
+    and 30, by when it has grown 100x or more (about 600x at tick 10 on a
+    CPU).  So the port adds no more float32 rounding to this leaf than the
+    JAX package does."""
+    import jax
+
+    monkeypatch.setattr(jsweep.cfg, "load_config", duration_loader(jcfg.load_config,
+                                                                   F1_NOISE_TICKS))
+    monkeypatch.setattr(ral23_sweep.cfg, "load_config", duration_loader(tcfg.load_config,
+                                                                        F1_NOISE_TICKS))
+    recorder = Recorder(jax)
+    monkeypatch.setattr(jsweep, "jax", recorder)
+    runs = []
+    build = ral23_sweep.build_device_loop
+
+    def recording_build(*args, **kwargs):
+        init_carry, run = build(*args, **kwargs)
+
+        def recording_run(*a, **kw):
+            runs.append(run(*a, **kw))
+            return runs[-1]
+
+        return init_carry, recording_run
+
+    monkeypatch.setattr(ral23_sweep, "build_device_loop", recording_build)
+    paths = ral23_sweep.discover_groups(REPO / "configs" / "ral23" / "freespace")[
+        "robust_arch_arm_only"]
+    ee = {}
+    for dtype in (torch.float64, torch.float32):
+        ral23_sweep.run_group("robust_arch_arm_only", paths, device="cpu", dtype=dtype)
+        ee["port", dtype] = runs[-1][1].r_ew_w.double().numpy()[:, 0]  # (ticks, 3)
+        with jax.enable_x64(dtype == torch.float64), jax.default_matmul_precision("highest"):
+            jsweep.run_group("robust_arch_arm_only", paths)
+            ee["jax", dtype] = np.asarray(recorder.returned[-1][1].r_ew_w, dtype=np.float64)[0]
+    assert ee["port", torch.float32].shape == (F1_NOISE_TICKS, 3)
+    gap = {pkg: np.abs(ee[pkg, torch.float32] - ee[pkg, torch.float64]).max(-1)
+           for pkg in ("port", "jax")}
+    between = np.abs(ee["port", torch.float32] - ee["jax", torch.float32]).max(-1)
+    print("float32 off float64, port / JAX, by tick: " + ", ".join(
+        f"{t}: {gap['port'][t]:.2e} / {gap['jax'][t]:.2e}" for t in (0, 5, 10, 20, 29))
+        + f"; float32 port against JAX over the first 5 ticks {between[:5].max():.2e}")
+    assert np.abs(ee["port", torch.float64] - ee["jax", torch.float64]).max() <= 1e-10
+    assert between[:5].max() <= 2e-7
+    for t in (10, 20, 29):
+        assert gap["jax"][t] >= 100 * gap["jax"][0]
+        assert gap["jax"][t] / 2 <= gap["port"][t] <= 2 * gap["jax"][t], (t, gap)

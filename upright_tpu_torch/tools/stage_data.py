@@ -65,6 +65,31 @@ def fallback_batch(Bt=6, N=3, nx=6, nu=26, seed=7):
     return A, B, d, g, H, gf, Hf
 
 
+def capture_stage_data(problem, state, x0=None, config=None):
+    """The stage data (A, B, d, grads, hess, gf, Hf) that the solver hands the
+    Riccati backward pass in the last iteration of ``config`` (one iteration
+    unless given) from the warm start ``state``, as it passes them.  The
+    backward pass is the plain version, so that capturing launches no
+    kernel.  ``x0``: (B, nx), ``problem.x0`` unless given; the solve runs on
+    its device and dtype, with ``problem``'s stage parameters at t = 0.
+    """
+    from upright_tpu_torch.parallel.batch import broadcast_params
+    from upright_tpu_torch.solver.al import ALConfig, solve
+    from upright_tpu_torch.solver.riccati import riccati_backward_plain
+
+    x0 = problem.x0[None] if x0 is None else x0
+    captured = []
+
+    def capture(*args, **kw):
+        captured[:] = [a.clone() for a in args]
+        return riccati_backward_plain(*args, **kw)
+
+    solve(problem.ocp, ALConfig(iterations=1) if config is None else config,
+          broadcast_params(problem.stage_params(0.0), x0.shape[0]), x0, state,
+          device=x0.device, dtype=x0.dtype, backward=capture)
+    return tuple(captured)
+
+
 def solver_stage_data(config_path, batch, N=None, iterations=2, seed=0, device="cuda",
                       dtype=None):
     """The stage data the solver hands the Riccati backward pass, from a cold
@@ -73,17 +98,15 @@ def solver_stage_data(config_path, batch, N=None, iterations=2, seed=0, device="
     Builds ``configs/<config_path>`` on ``device`` (float32 unless ``dtype``
     says otherwise; N from the config unless given), perturbs x0 by 0.01 from
     numpy ``seed`` for each of ``batch`` instances and runs ``iterations``
-    AL-SQP iterations from the cold start, with the plain backward pass, so
-    that capturing launches no kernel.  Returns the (A, B, d, grads, hess,
-    gf, Hf) of the last iteration, as the solver passes them.
+    AL-SQP iterations from the cold start (``capture_stage_data``).  Returns
+    the (A, B, d, grads, hess, gf, Hf) of the last iteration.
     """
     import torch
 
     import upright_tpu_torch.config as cfg
     from upright_tpu_torch.ocp.problem import build_problem
-    from upright_tpu_torch.parallel.batch import batch_warm_starts, broadcast_params
-    from upright_tpu_torch.solver.al import ALConfig, solve
-    from upright_tpu_torch.solver.riccati import riccati_backward_plain
+    from upright_tpu_torch.parallel.batch import batch_warm_starts
+    from upright_tpu_torch.solver.al import ALConfig
 
     dtype = torch.float32 if dtype is None else dtype
     path = cfg.resolve_package_path({"package": "configs", "path": config_path})
@@ -91,48 +114,46 @@ def solver_stage_data(config_path, batch, N=None, iterations=2, seed=0, device="
     rng = np.random.default_rng(seed)
     x0 = prob.x0.cpu().numpy()[None, :] + 0.01 * rng.standard_normal((batch, prob.ocp.nx))
     x0 = torch.as_tensor(x0, dtype=dtype, device=prob.ocp.device)
-    captured = []
-
-    def capture(*args, **kw):
-        captured[:] = [a.clone() for a in args]
-        return riccati_backward_plain(*args, **kw)
-
-    solve(prob.ocp, ALConfig(iterations=iterations, rho_eq=10.0, rho_ineq=10.0),
-          broadcast_params(prob.stage_params(0.0), batch), x0,
-          batch_warm_starts(prob.ocp, x0, device=device, dtype=dtype),
-          device=device, dtype=dtype, backward=capture)
-    return tuple(captured)
+    return capture_stage_data(
+        prob, batch_warm_starts(prob.ocp, x0, device=device, dtype=dtype), x0=x0,
+        config=ALConfig(iterations=iterations, rho_eq=10.0, rho_ineq=10.0))
 
 
-def ral25_stage_data(iterations=5, device="cuda", dtype=None):
+# The ral25 study's robust plan of ``chip_smoke.py`` phase 16: the box height
+# (m) and the one waypoint
+RAL25_HEIGHT, RAL25_WAYPOINT = 0.20, (-2.0, 1.0, 0.0)
+
+
+def ral25_plan_config():
+    """The config of ``scripts/ral25_study.py`` ``build_study_config`` at
+    RAL25_HEIGHT with the one RAL25_WAYPOINT, and the CoM box that
+    ``plan_robust`` takes (``com_half_extents``)."""
+    from upright_tpu_torch.scripts.ral25_study import COM_XY, build_study_config
+
+    config = build_study_config(RAL25_HEIGHT)
+    config["controller"]["waypoints"] = [
+        {"time": 0, "position": list(RAL25_WAYPOINT), "orientation": [0, 0, 0, 1]}]
+    return config, [[COM_XY, COM_XY, RAL25_HEIGHT / 2]]
+
+
+# SQP iterations of the ral25 plan before its stage data is captured: on the
+# CPU in float32, 5, 20 and 60 give the same data (the plan's line search
+# stalls), and there the emulated K1 and the plain version differ by more
+# than 2x in float32 (PERF.md, K1-e)
+RAL25_ITERATIONS = 5
+
+
+def ral25_stage_data():
     """The stage data the solver hands the backward pass on the ral25 robust
-    plan of ``chip_smoke.py`` phase 16 (``scripts/ral25_study.py``
-    ``build_study_config(0.20)``, robust variant, its first waypoint, 10 s:
-    1x100x27x41, stage-invariant A and B), after ``iterations`` SQP
-    iterations of the plan and one more with a capturing plain backward pass.
-    Float32 unless ``dtype`` says otherwise; on the CPU it is deterministic.
+    plan (``ral25_plan_config``, 10 s: 1x100x27x41, stage-invariant A and
+    B), after RAL25_ITERATIONS SQP iterations and one more that captures it.
+    Made on the CPU in float32, which makes it deterministic on one machine.
     """
     import torch
 
-    from upright_tpu_torch.parallel.batch import broadcast_params
     from upright_tpu_torch.robust.planning import plan_robust
-    from upright_tpu_torch.scripts.ral25_study import COM_XY, build_study_config
-    from upright_tpu_torch.solver.al import ALConfig, solve
-    from upright_tpu_torch.solver.riccati import riccati_backward_plain
 
-    dtype = torch.float32 if dtype is None else dtype
-    height = 0.20
-    config = build_study_config(height)
-    config["controller"]["waypoints"] = [
-        {"time": 0, "position": [-2.0, 1.0, 0.0], "orientation": [0, 0, 0, 1]}]
-    prob, sol, _ = plan_robust(config, com_half_extents=[[COM_XY, COM_XY, height / 2]],
-                               duration=10.0, iterations=iterations, device=device, dtype=dtype)
-    captured = []
-
-    def capture(*args, **kw):
-        captured[:] = [a.clone() for a in args]
-        return riccati_backward_plain(*args, **kw)
-
-    solve(prob.ocp, ALConfig(iterations=1), broadcast_params(prob.stage_params(0.0), 1),
-          prob.x0[None], sol.state, device=device, dtype=dtype, backward=capture)
-    return tuple(captured)
+    config, box = ral25_plan_config()
+    prob, sol, _ = plan_robust(config, com_half_extents=box, duration=10.0,
+                               iterations=RAL25_ITERATIONS, device="cpu", dtype=torch.float32)
+    return capture_stage_data(prob, sol.state)
