@@ -1,0 +1,13 @@
+"""plant_host_ms.loop (ms, device trace): the host's time a tick in the plant
+step, read from the program's span ``loop.plant`` (the policy, the command
+integration, the plant step with P1, the EE pose after it): the span's own
+duration on the host, summed over its occurrences in the traced units, over
+their number.  None where the program has no such span."""
+
+from benchmark import spans
+
+
+def read(ctx):
+    if ctx["kind"] != "loop":
+        return None
+    return spans.host_ms(ctx["trace"], "loop.plant")

@@ -110,12 +110,13 @@ holds every hand-written kernel against its plain PyTorch version:
  then one JSON line describing each kernel (time, bound, launches), the
  card's name and power limit, and the final JSON line.
 
-With ``--breakdown`` it also times the phases of one solve (linearization,
-Riccati kernel, line search) between synchronisations and traces three solves
-with torch.profiler, and times the stage derivatives in each Jacobian mode
-(wide, blocked, rev), on thing_demo and full_bottle_point1 at batch 512 and
-batch 1, and the phases of one replan of phase 14's projectile problem: the
-numbers of PERF.md's "where the time goes".
+With ``--breakdown`` it also traces three solves with torch.profiler and
+prints the host and card ms of each of the solver's spans (``al.linearize``,
+``al.backward``, ``al.line_search``, ``al.update``;
+``scripts/profile_solve.py``), and times the stage derivatives in each
+Jacobian mode (wide, blocked, rev), on thing_demo and full_bottle_point1 at
+batch 512 and batch 1, and the phases of one replan of phase 14's projectile
+problem: the numbers of PERF.md's "where the time goes".
 
 It needs a CUDA device and the repository around it: it exits non-zero and
 prints no result without either.  Any failed check raises, so the exit code
@@ -193,7 +194,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="also write the results as JSON here")
     ap.add_argument("--breakdown", action="store_true",
-                    help="also time the phases of one solve and trace three solves")
+                    help="also trace three solves and print the solver spans' host and card ms")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -228,6 +229,7 @@ def main():
     )
     from upright_tpu_torch.robust.verification import count_failures
     from upright_tpu_torch.scripts import launch_stack, mpc_sim, ral23_sweep, runtime_demo
+    from upright_tpu_torch.scripts.profile_solve import span_breakdown
     from upright_tpu_torch.sim import contact
     from upright_tpu_torch.sim import simulation as sim_mod
     from upright_tpu_torch.sim.simulation import UprightSimulation
@@ -236,7 +238,7 @@ def main():
     from upright_tpu_torch.solver.mpc import ControllerManager, MPCSettings
     from upright_tpu_torch.solver.ocp import SolverState
     from upright_tpu_torch.solver.pscan import parallel_backward_pass
-    from upright_tpu_torch.tools import k1_float32_error, solve_phases
+    from upright_tpu_torch.tools import k1_float32_error
     from upright_tpu_torch.tools.plant_data import (
         F32_TOL,
         float32_witness,
@@ -1947,7 +1949,7 @@ def main():
 
     # -- optional: where one solve's time goes ---------------------------------
     def phase_breakdown(label, ocp, p, x0, st):
-        return solve_phases.phase_breakdown(ocp, al_cfg, p, x0, st, label=label, log=log)
+        return span_breakdown(ocp, al_cfg, p, x0, st, label=label, log=log)
 
     def jac_mode_times(label, problem, p, x0, st):
         """Host time of the stage derivatives in each Jacobian mode between

@@ -45,7 +45,7 @@ def test_importing_the_port_pulls_in_no_jax():
                    "robust.scenarios", "robust.realizable", "robust.planning",
                    "scripts.robust_planning", "scripts.ral25_study", "scripts.ral23_sweep",
                    "scripts.aligned_differential_study", "entry", "parallel.multihost",
-                   "core.util", "sim.camera", "tools.solve_phases", "scripts.scaling_curve",
+                   "core.util", "sim.camera", "tracing", "scripts.scaling_curve",
                    "scripts.plot_log", "scripts.analyze_run", "scripts.obj_err_comp_time",
                    "scripts.tune_estimator", "scripts.calibrate_inertia",
                    "scripts.arrangement_geometry", "scripts.balance_at_configuration",

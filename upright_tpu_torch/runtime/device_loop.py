@@ -10,9 +10,11 @@ of every tensor.  Each tick, for all B instances at once:
   1-iteration SQP replan (the Riccati kernel) -> LQR policy at tau = 0 ->
   jerk double integration -> plant step (the contact kernel)
 
-so a tick launches each kernel once per SQP iteration whatever B is.  The host
-reads nothing back inside ``run``: the metrics it returns are device tensors,
-stacked over the ticks, for the caller to read once.
+so a tick launches each kernel once per SQP iteration whatever B is.  A tick
+runs in two spans (``tracing.py``): ``loop.replan`` (observe, shift and heal,
+the solve) and ``loop.plant`` (the policy to the EE pose after the plant
+step).  The host reads nothing back inside ``run``: the metrics it returns
+are device tensors, stacked over the ticks, for the caller to read once.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from upright_tpu_torch.parallel.batch import broadcast_params
 from upright_tpu_torch.sim.simulation import SimState, UprightSimulation
 from upright_tpu_torch.solver.al import ALConfig, solve
 from upright_tpu_torch.solver.ocp import SolverState, zeros_warm_start
+from upright_tpu_torch.tracing import span
 
 
 @dataclasses.dataclass
@@ -94,22 +97,26 @@ def build_device_loop(problem: UprightProblem, sim: UprightSimulation,
         return params if _is_stack(target) else broadcast_params(params, 1)
 
     def tick(carry: LoopCarry, target):
-        x = torch.cat([carry.sim.q, carry.sim.v, carry.a_state], dim=-1)
-        warm = problem.heal_warm_start(problem.shift_warm_start(carry.solver, shift), x)
-        sol = solve(ocp, cfg, params_at(carry.t, target), x, warm, device=dev, dtype=ocp.dtype)
+        with span("loop.replan", dev):
+            x = torch.cat([carry.sim.q, carry.sim.v, carry.a_state], dim=-1)
+            warm = problem.heal_warm_start(problem.shift_warm_start(carry.solver, shift), x)
+            sol = solve(ocp, cfg, params_at(carry.t, target), x, warm, device=dev,
+                        dtype=ocp.dtype)
 
-        # policy at tau = 0 (immediately after the replan): k = 0, alpha = 0
-        u = sol.state.U[:, 0]
-        if use_feedback_policy:
-            u = u + (sol.K[:, 0] @ (x - sol.state.X[:, 0]).unsqueeze(-1)).squeeze(-1)
-        j = u[:, :nq]
+        with span("loop.plant", dev):
+            # policy at tau = 0 (immediately after the replan): k = 0, alpha = 0
+            u = sol.state.U[:, 0]
+            if use_feedback_policy:
+                u = u + (sol.K[:, 0] @ (x - sol.state.X[:, 0]).unsqueeze(-1)).squeeze(-1)
+            j = u[:, :nq]
 
-        v_cmd = carry.sim.v + dt_ctrl * carry.a_state + 0.5 * dt_ctrl**2 * j
-        a_next = carry.a_state + dt_ctrl * j
-        sim_next = sim.step(carry.sim, v_cmd, n_steps=n_sub)
+            v_cmd = carry.sim.v + dt_ctrl * carry.a_state + 0.5 * dt_ctrl**2 * j
+            a_next = carry.a_state + dt_ctrl * j
+            sim_next = sim.step(carry.sim, v_cmd, n_steps=n_sub)
 
-        _, r_ew = sim.robot.ee_pose(sim_next.q)
-        next_carry = LoopCarry(t=carry.t + dt_ctrl, sim=sim_next, solver=sol.state, a_state=a_next)
+            _, r_ew = sim.robot.ee_pose(sim_next.q)
+            next_carry = LoopCarry(t=carry.t + dt_ctrl, sim=sim_next, solver=sol.state,
+                                   a_state=a_next)
         return next_carry, (sol.eq_viol, sol.cost, r_ew)
 
     def run(carry: LoopCarry, n_replans: int, target=None):

@@ -14,6 +14,10 @@ Each SQP iteration has three phases:
   - the forward rollouts of the fixed line-search candidates, a Python loop
     over stages on (candidate, instance) blocks, then accept/reject and the
     clipped dual update per instance.
+
+The call runs in the span ``al.solve`` and each iteration in four that tile
+it, ``al.linearize``, ``al.backward``, ``al.line_search`` and ``al.update``
+(``tracing.py``).
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from upright_tpu_torch import check_on_device
 from upright_tpu_torch.solver.ocp import OCP, Solution, SolverState
 from upright_tpu_torch.solver.pscan import parallel_backward_pass
 from upright_tpu_torch.solver.riccati import riccati_backward
+from upright_tpu_torch.tracing import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -349,138 +354,143 @@ def solve(ocp: OCP, cfg: ALConfig, params, x0, state: SolverState,
     unless given; a caller passes ``riccati_backward_plain`` to compare
     against the kernel.
     """
-    check_on_device(x0, device, dtype, "x0")
-    check_on_device(state.X, device, dtype, "state.X")
-    if backward is None:
-        if cfg.backward in ("scan", "pallas"):
-            backward = riccati_backward
-        elif cfg.backward == "pscan":
-            backward = parallel_backward_pass
-        else:
-            raise ValueError("ALConfig.backward must be 'scan', 'pallas' or 'pscan'; "
-                             f"got {cfg.backward!r}")
-    p_stage = params["stage"]
-    p_final = params["final"]
-    B = x0.shape[0]
-    X, U, lam, mu, lam_f = state.X, state.U, state.lam, state.mu, state.lam_f
-
-    if cfg.dual_reset_violation is not None and (ocp.n_eq > 0 or ocp.n_ineq > 0):
-        # divergence watchdog (see ALConfig.dual_reset_violation)
-        viol0 = x0.new_zeros(B)
-        if ocp.n_eq > 0:
-            g0 = ocp.eq(X[:, :-1], U, p_stage)
-            viol0 = torch.maximum(viol0, torch.abs(g0).amax((-1, -2)))
-        if ocp.n_ineq > 0:
-            h0 = ocp.ineq(X[:, :-1], U, p_stage)
-            viol0 = torch.maximum(viol0, torch.clamp(-h0, min=0.0).amax((-1, -2)))
-        keep = (viol0 <= cfg.dual_reset_violation).to(X.dtype)
-        lam = lam * keep.view(B, 1, 1)
-        mu = mu * keep.view(B, 1, 1)
-        lam_f = lam_f * keep.view(B, 1)
-
-    alphas = torch.as_tensor(cfg.line_search_steps, dtype=X.dtype, device=X.device)
-    K = cost = eq_viol = ineq_viol = defect = None
-
-    for it in range(cfg.iterations):
-        # pin the initial state
-        X = torch.cat([x0.unsqueeze(1), X[:, 1:]], dim=1)
-        x, u = X[:, :-1], U
-
-        # linearize dynamics + defects
-        if ocp.linear_dynamics:
-            # A, B are state-independent: linearize once at a reference
-            # point and hand the backward pass one stage-invariant pair
-            p00 = {name: v[0, 0] for name, v in p_stage.items()}
-            A = jacfwd(ocp.dynamics, argnums=0)(X[0, 0], U[0, 0], p00)
-            Bm = jacfwd(ocp.dynamics, argnums=1)(X[0, 0], U[0, 0], p00)
-        else:
-            xf, uf, pf = _flatten_lead(2, x, u, p_stage)
-            A = vmap(jacfwd(ocp.dynamics, argnums=0))(xf, uf, pf)
-            Bm = vmap(jacfwd(ocp.dynamics, argnums=1))(xf, uf, pf)
-            A = A.reshape(B, ocp.N, ocp.nx, ocp.nx)
-            Bm = Bm.reshape(B, ocp.N, ocp.nx, ocp.nu)
-        d = ocp.dynamics(x, u, p_stage) - X[:, 1:]
-
-        # AL stage derivatives
-        grads, hess = _stage_derivatives(ocp, cfg, x, u, p_stage, lam, mu)
-        gf, Hf = _final_derivatives(ocp, cfg, X[:, -1], p_final, lam_f)
-
-        # Riccati backward pass: the CUDA kernel on the card, or the ladder
-        # (a stage-invariant A, B pair is broadcast by either)
-        K, kff = backward(
-            A.contiguous(), Bm.contiguous(), d.contiguous(), grads.contiguous(),
-            hess.contiguous(), gf.contiguous(), Hf.contiguous(), reg=cfg.reg,
-        )
-
-        # line search over fixed candidates
-        merits, Xs, Us, terms_a = _rollout_merit(
-            ocp, cfg, X, U, K, kff, alphas, x0, p_stage, p_final, lam, mu, lam_f
-        )
-        merit0, terms0 = _merit_terms(
-            ocp, cfg, X, U, p_stage, p_final, lam, mu, lam_f
-        )
-        merits = torch.where(
-            torch.isnan(merits), torch.full_like(merits, float("inf")), merits
-        )
-        best = torch.argmin(merits, dim=0)  # (B,)
-        accept = torch.gather(merits, 0, best.unsqueeze(0)).squeeze(0) < merit0
-
-        X_new = _select(best, accept, Xs, X)
-        U_new = _select(best, accept, Us, U)
-        # Plain cost + constraint values at the accepted iterate, threaded
-        # through the candidate select: the dual update and the diagnostics
-        # below cost no further kinematic-chain sweep
-        cost, g, h, gf_val = (
-            _select(best, accept, a, b) for a, b in zip(terms_a, terms0)
-        )
-
-        # dual (multiplier) update: makes warm-started 1-iteration MPC solves
-        # track the constrained optimum.  Multipliers move only after an
-        # accepted primal step: a rejected line search means the AL
-        # subproblem was not (approximately) minimized, and integrating
-        # rho*g against a stuck primal is pure windup.
-        if cfg.update_multipliers:
-            plain = cfg.dual_update_every == 1 and cfg.dual_step == 1.0
-            if plain:
-                beta = 1.0
+    with span("al.solve", x0.device):
+        check_on_device(x0, device, dtype, "x0")
+        check_on_device(state.X, device, dtype, "state.X")
+        if backward is None:
+            if cfg.backward in ("scan", "pallas"):
+                backward = riccati_backward
+            elif cfg.backward == "pscan":
+                backward = parallel_backward_pass
             else:
-                do_update = ((it + 1) % cfg.dual_update_every) == 0
-                beta = cfg.dual_step if do_update else 0.0
-            beta = beta * accept.to(X.dtype)  # (B,)
+                raise ValueError("ALConfig.backward must be 'scan', 'pallas' or 'pscan'; "
+                                 f"got {cfg.backward!r}")
+        p_stage = params["stage"]
+        p_final = params["final"]
+        B = x0.shape[0]
+        X, U, lam, mu, lam_f = state.X, state.U, state.lam, state.mu, state.lam_f
+
+        if cfg.dual_reset_violation is not None and (ocp.n_eq > 0 or ocp.n_ineq > 0):
+            # divergence watchdog (see ALConfig.dual_reset_violation)
+            viol0 = x0.new_zeros(B)
             if ocp.n_eq > 0:
-                lam = torch.clamp(
-                    lam + beta.view(B, 1, 1) * cfg.rho_eq * g, -cfg.lam_max, cfg.lam_max
-                )
+                g0 = ocp.eq(X[:, :-1], U, p_stage)
+                viol0 = torch.maximum(viol0, torch.abs(g0).amax((-1, -2)))
             if ocp.n_ineq > 0:
-                mu_new = torch.clamp(
-                    torch.clamp(mu - cfg.rho_ineq * h, min=0.0), 0.0, cfg.mu_max
-                )
-                if plain:
-                    mu = torch.where(accept.view(B, 1, 1), mu_new, mu)
+                h0 = ocp.ineq(X[:, :-1], U, p_stage)
+                viol0 = torch.maximum(viol0, torch.clamp(-h0, min=0.0).amax((-1, -2)))
+            keep = (viol0 <= cfg.dual_reset_violation).to(X.dtype)
+            lam = lam * keep.view(B, 1, 1)
+            mu = mu * keep.view(B, 1, 1)
+            lam_f = lam_f * keep.view(B, 1)
+
+        alphas = torch.as_tensor(cfg.line_search_steps, dtype=X.dtype, device=X.device)
+        K = cost = eq_viol = ineq_viol = defect = None
+
+        for it in range(cfg.iterations):
+            with span("al.linearize", x0.device):
+                # pin the initial state
+                X = torch.cat([x0.unsqueeze(1), X[:, 1:]], dim=1)
+                x, u = X[:, :-1], U
+
+                # linearize dynamics + defects
+                if ocp.linear_dynamics:
+                    # A, B are state-independent: linearize once at a reference
+                    # point and hand the backward pass one stage-invariant pair
+                    p00 = {name: v[0, 0] for name, v in p_stage.items()}
+                    A = jacfwd(ocp.dynamics, argnums=0)(X[0, 0], U[0, 0], p00)
+                    Bm = jacfwd(ocp.dynamics, argnums=1)(X[0, 0], U[0, 0], p00)
                 else:
-                    mu = mu + beta.view(B, 1, 1) * (mu_new - mu)
-            if ocp.n_feq > 0:
-                lam_f = torch.clamp(
-                    lam_f + beta.view(B, 1) * cfg.rho_eq * gf_val,
-                    -cfg.lam_max, cfg.lam_max,
+                    xf, uf, pf = _flatten_lead(2, x, u, p_stage)
+                    A = vmap(jacfwd(ocp.dynamics, argnums=0))(xf, uf, pf)
+                    Bm = vmap(jacfwd(ocp.dynamics, argnums=1))(xf, uf, pf)
+                    A = A.reshape(B, ocp.N, ocp.nx, ocp.nx)
+                    Bm = Bm.reshape(B, ocp.N, ocp.nx, ocp.nu)
+                d = ocp.dynamics(x, u, p_stage) - X[:, 1:]
+
+                # AL stage derivatives
+                grads, hess = _stage_derivatives(ocp, cfg, x, u, p_stage, lam, mu)
+                gf, Hf = _final_derivatives(ocp, cfg, X[:, -1], p_final, lam_f)
+
+            with span("al.backward", x0.device):
+                # Riccati backward pass: the CUDA kernel on the card, or the ladder
+                # (a stage-invariant A, B pair is broadcast by either)
+                K, kff = backward(
+                    A.contiguous(), Bm.contiguous(), d.contiguous(), grads.contiguous(),
+                    hess.contiguous(), gf.contiguous(), Hf.contiguous(), reg=cfg.reg,
                 )
 
-        # per-iteration diagnostics (the last iteration's are returned),
-        # all assembled from the threaded candidate terms.  The defect is
-        # exact: an accepted candidate came out of the rollout, so its defect
-        # is a structural zero; a rejected step keeps (X, U) whose defect is d.
-        eq_viol = torch.abs(g).amax((-1, -2)) if ocp.n_eq > 0 else x0.new_zeros(B)
-        if ocp.n_feq > 0:
-            eq_viol = torch.maximum(eq_viol, torch.abs(gf_val).amax(-1))
-        ineq_viol = (
-            torch.clamp(-h, min=0.0).amax((-1, -2)) if ocp.n_ineq > 0 else x0.new_zeros(B)
+            with span("al.line_search", x0.device):
+                # line search over fixed candidates
+                merits, Xs, Us, terms_a = _rollout_merit(
+                    ocp, cfg, X, U, K, kff, alphas, x0, p_stage, p_final, lam, mu, lam_f
+                )
+                merit0, terms0 = _merit_terms(
+                    ocp, cfg, X, U, p_stage, p_final, lam, mu, lam_f
+                )
+                merits = torch.where(
+                    torch.isnan(merits), torch.full_like(merits, float("inf")), merits
+                )
+                best = torch.argmin(merits, dim=0)  # (B,)
+                accept = torch.gather(merits, 0, best.unsqueeze(0)).squeeze(0) < merit0
+
+                X_new = _select(best, accept, Xs, X)
+                U_new = _select(best, accept, Us, U)
+                # Plain cost + constraint values at the accepted iterate, threaded
+                # through the candidate select: the dual update and the diagnostics
+                # below cost no further kinematic-chain sweep
+                cost, g, h, gf_val = (
+                    _select(best, accept, a, b) for a, b in zip(terms_a, terms0)
+                )
+
+            with span("al.update", x0.device):
+                # dual (multiplier) update: makes warm-started 1-iteration MPC solves
+                # track the constrained optimum.  Multipliers move only after an
+                # accepted primal step: a rejected line search means the AL
+                # subproblem was not (approximately) minimized, and integrating
+                # rho*g against a stuck primal is pure windup.
+                if cfg.update_multipliers:
+                    plain = cfg.dual_update_every == 1 and cfg.dual_step == 1.0
+                    if plain:
+                        beta = 1.0
+                    else:
+                        do_update = ((it + 1) % cfg.dual_update_every) == 0
+                        beta = cfg.dual_step if do_update else 0.0
+                    beta = beta * accept.to(X.dtype)  # (B,)
+                    if ocp.n_eq > 0:
+                        lam = torch.clamp(
+                            lam + beta.view(B, 1, 1) * cfg.rho_eq * g, -cfg.lam_max, cfg.lam_max
+                        )
+                    if ocp.n_ineq > 0:
+                        mu_new = torch.clamp(
+                            torch.clamp(mu - cfg.rho_ineq * h, min=0.0), 0.0, cfg.mu_max
+                        )
+                        if plain:
+                            mu = torch.where(accept.view(B, 1, 1), mu_new, mu)
+                        else:
+                            mu = mu + beta.view(B, 1, 1) * (mu_new - mu)
+                    if ocp.n_feq > 0:
+                        lam_f = torch.clamp(
+                            lam_f + beta.view(B, 1) * cfg.rho_eq * gf_val,
+                            -cfg.lam_max, cfg.lam_max,
+                        )
+
+                # per-iteration diagnostics (the last iteration's are returned),
+                # all assembled from the threaded candidate terms.  The defect is
+                # exact: an accepted candidate came out of the rollout, so its defect
+                # is a structural zero; a rejected step keeps (X, U) whose defect is d.
+                eq_viol = torch.abs(g).amax((-1, -2)) if ocp.n_eq > 0 else x0.new_zeros(B)
+                if ocp.n_feq > 0:
+                    eq_viol = torch.maximum(eq_viol, torch.abs(gf_val).amax(-1))
+                ineq_viol = (
+                    torch.clamp(-h, min=0.0).amax((-1, -2)) if ocp.n_ineq > 0 else x0.new_zeros(B)
+                )
+                defect = torch.where(accept, torch.zeros_like(merit0), torch.abs(d).amax((-1, -2)))
+
+                X, U = X_new, U_new
+
+        new_state = SolverState(X=X, U=U, lam=lam, mu=mu, lam_f=lam_f)
+        return Solution(
+            state=new_state, K=K, cost=cost, eq_viol=eq_viol,
+            ineq_viol=ineq_viol, defect=defect,
         )
-        defect = torch.where(accept, torch.zeros_like(merit0), torch.abs(d).amax((-1, -2)))
-
-        X, U = X_new, U_new
-
-    new_state = SolverState(X=X, U=U, lam=lam, mu=mu, lam_f=lam_f)
-    return Solution(
-        state=new_state, K=K, cost=cost, eq_viol=eq_viol,
-        ineq_viol=ineq_viol, defect=defect,
-    )
