@@ -7,25 +7,32 @@ Drives the port's main path through the entry points a user would call and
 holds every hand-written kernel against its plain PyTorch version:
 
   1. the card (name, power limit, torch / CUDA versions);
-  2. builds both kernels from upright_tpu_torch/csrc/ (the Riccati kernel K1
-     and the plant's contact kernel P1, one nvcc each, in parallel) and
-     prints registers, local memory and shared memory of each instantiation
-     (K1: the register route and the wide route, float32 and float64; P1:
-     float32 and float64, one warp and block-wide, two friction models), all
-     without local memory;
+  2. builds the three kernels from upright_tpu_torch/csrc/ (the Riccati
+     kernel K1, the plant's contact kernel P1 and the kinematic chain's
+     kernel K2, one nvcc each, in parallel) and prints registers, local
+     memory and shared memory of each instantiation (K1: the register route
+     and the wide route, float32 and float64; P1: float32 and float64, one
+     warp and block-wide, two friction models; K2: value and Jacobian mode,
+     float32 and float64), all without local memory;
   3. K1 against its plain version (float64): the main-path shapes in
      float32 and float64, the wide route (nu = 45 and 93) in both, and
      batches built to take the jitter fallback and to fail it (nu 26 and 70,
-     same NaN pattern); then the public helpers no later phase calls (the
-     exact friction cone, BalanceModel.with_params, frame_motion at every
-     joint frame) on the card in both dtypes against their float64 CPU
-     values;
+     same NaN pattern); K2 against its plain version (PlainSweep) in both
+     modes, float32 and float64, on thing_demo's EE motion along (q, v, a)
+     and full_bottle_point1's collision frames along q, at the main path's
+     points (512 x 20) and the solve cell's (16,384 x 20); then the public
+     helpers no later phase calls (the exact friction cone,
+     BalanceModel.with_params, frame_motion at every joint frame) on the card
+     in both dtypes against their float64 CPU values;
   4. the batched main path: demos/thing_demo.yaml, N = 20, batch 512, one
-     warm-started AL-SQP iteration per solve, solves/s over 10 re-solves;
+     warm-started AL-SQP iteration per solve, solves/s over 10 re-solves, K1
+     and K2 launches counted;
   5. the steady replan at batch 1: shift -> heal -> solve -> policy;
   6. kernel times (specialised and runtime-sized instances, both forms, batch
      1, float64, nu = 45, N = 200), each as one eager call of the wrapper and
-     as the kernel's device time alone, beside its bound;
+     as the kernel's device time alone, beside its bound; K2's two modes at
+     the solve cell's points the same way, beside their bound and the plain
+     version's time;
   7. the plant's contact kernel P1 (csrc/plant.cu) against its plain
      version over one control tick (10 outer steps x 40 substeps):
      thing_demo at batch 1 and 64 with the mass, mu and CoM spread per
@@ -36,8 +43,8 @@ holds every hand-written kernel against its plain PyTorch version:
      same inputs (the witness), and a control that the float32 limits reject;
   8. the closed loop: thing_demo at full width on the device loop
      (runtime/device_loop.py), a 12-iteration cold solve, then 100 ticks at
-     100 Hz (1.0 s) through both kernels: costs finite, the bottle within
-     0.03 m of its place; then 10 ticks of the host loop (ControllerManager +
+     100 Hz (1.0 s) through the three kernels (their launches counted):
+     costs finite, the bottle within 0.03 m of its place; then 10 ticks of the host loop (ControllerManager +
      UprightSimulation) against the device loop from the same start;
   9. P1's times (thing_demo at batch 1 and 512, box_arch and blue_cups at
      batch 1) beside its bound and its plain version's,
@@ -127,6 +134,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import statistics
 import subprocess
@@ -190,6 +198,38 @@ def riccati_work(Bt, N, nx, nu, invariant, elem_bytes=4):
     return elem_bytes * total_elems, Bt * N * per_stage_flops
 
 
+# Operations of K2's sweep (csrc/chain.cu), counted from the source, a sin or
+# a cos as one: the primal of one joint (its fixed transform, then its
+# revolute or prismatic DOF), and one direction's tangent through a joint,
+# along q (which moves the poses) or along v or a (which moves no pose).
+K2_PRIMAL_OPS = {"fixed": 99, "revolute": 123, "prismatic": 84}
+K2_TANGENT_OPS = {"fixed": (168, 105), "revolute": (198, 48), "prismatic": (153, 135)}
+
+
+def chain_work(kinds, nq, n_out, points, n_dir, inputs, elem_bytes=4):
+    """(bytes, flops) of one K2 launch on a chain whose joints are ``kinds``
+    ("fixed", "revolute", "prismatic") up to the last frame it writes: the
+    inputs (``inputs`` of q, v, a) read once, the output written once; the
+    primal sweep once a point, and each direction's tangent from its joint
+    on.  The Jacobian mode recomputes the primal in every (point, direction)
+    thread; that repetition is the kernel's cost, not the function's, and is
+    not counted.  n_dir 0 is the value mode."""
+    primal = sum(K2_PRIMAL_OPS["fixed"] + (K2_PRIMAL_OPS[k] if k != "fixed" else 0)
+                 for k in kinds)
+    tangent = 0
+    actuated = [i for i, k in enumerate(kinds) if k != "fixed"]
+    for d in range(n_dir):
+        rot = d < nq
+        j0 = actuated[d % nq]
+        tangent += K2_TANGENT_OPS[kinds[j0]][0 if rot else 1]
+        for k in kinds[j0 + 1:]:
+            tangent += K2_TANGENT_OPS["fixed"][0 if rot else 1]
+            if k != "fixed":
+                tangent += K2_TANGENT_OPS[k][0 if rot else 1]
+    nbytes = elem_bytes * points * (nq * inputs + n_out * max(n_dir, 1))
+    return nbytes, points * (primal + tangent)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="also write the results as JSON here")
@@ -211,6 +251,7 @@ def main():
     from upright_tpu_torch.core import balance
     from upright_tpu_torch.core.logging import DataLogger
     from upright_tpu_torch.core.math import quat_to_rot, rot_to_quat
+    from upright_tpu_torch.kinematics import chain as chain_mod
     from upright_tpu_torch.kinematics.robot import build_robot_model
     from upright_tpu_torch.ocp.problem import build_problem
     from upright_tpu_torch.ocp.reference import TargetTrajectory, stack_targets
@@ -309,11 +350,12 @@ def main():
     log("== 2. build")
     t0 = time.perf_counter()
     # one nvcc per source, started together
-    _build.build(["riccati", "plant"], extra_flags=("-Xptxas", "-v"), verbose=True)
+    _build.build(["riccati", "plant", "chain"], extra_flags=("-Xptxas", "-v"), verbose=True)
     riccati._library()
     contact._library()
+    chain_mod._library()
     build_s = time.perf_counter() - t0
-    log(f"built csrc/riccati.cu and csrc/plant.cu in {build_s:.1f} s (set-up)")
+    log(f"built csrc/riccati.cu, csrc/plant.cu and csrc/chain.cu in {build_s:.1f} s (set-up)")
     results["build_s"] = build_s
     thing_plant = plant_for("thing_demo")
     for name, a in contact.instance_attrs().items():
@@ -325,6 +367,12 @@ def main():
     results["plant_instances"] = contact.instance_attrs()
     check(all(a["local_bytes"] == 0 for a in results["plant_instances"].values()),
           "no plant instance has a stack frame or spills (local memory 0)")
+    results["chain_instances"] = chain_mod.instance_attrs()
+    for name, a in results["chain_instances"].items():
+        log(f"  chain instance {name}: {a['registers']} registers, {a['local_bytes']} bytes of "
+            f"local memory per thread, shared memory {a['static_smem_bytes']} static")
+    check(all(a["local_bytes"] == 0 for a in results["chain_instances"].values()),
+          "no K2 instance has a stack frame or spills (local memory 0)")
     attrs = riccati.instance_attrs()
     # the register route (nu <= 16), then the wide route at its shipped widths
     smem_at = {
@@ -459,6 +507,63 @@ def main():
         else:
             raise AssertionError(f"riccati_backward accepted {label} CUDA tensors")
 
+    # K2 against its plain version (PlainSweep: K2's interface in plain
+    # PyTorch, one jacfwd tangent a direction) in both modes and dtypes: the
+    # EE's motion along (q, v, a), as the solver's rows read it, on
+    # thing_demo's chain, and the poses of the frames full_bottle_point1's
+    # collision spheres hang on along q, as its collision rows read them; at
+    # the main path's points (phase 4: batch 512 x N 20) and the solve cell's
+    # (16,384 x 20).  Tolerances of the card tests, of the largest entry:
+    # float64 1e-12 (both sides float64, the same products in another order),
+    # float32 2e-6 (both sides float32; the kernel is built -fmad=false)
+    log("  the chain's kernel K2 against its plain version:")
+    K2_TOL = {torch.float64: 1e-12, torch.float32: 2e-6}
+    K2_POINTS = (BATCH * HORIZON, 16384 * HORIZON)
+    k2_requests = {}
+    for label, conf_path in (("thing_demo", "demos/thing_demo.yaml"),
+                             ("full_bottle_point1",
+                              "ral23/static_obstacles/full_bottle_point1.yaml")):
+        ctrl_k2 = cfg.load_config(cfg.resolve_package_path(
+            {"package": "configs", "path": conf_path}))["controller"]
+        chain_k2 = build_robot_model(ctrl_k2["robot"]).chain
+        last = len(chain_k2.joints) - 1
+        if label == "thing_demo":
+            k2_requests["thing_demo ee motion"] = (
+                chain_mod.SweepRequest(chain_k2, (last,), last), True)
+        else:
+            frames = tuple(dict.fromkeys(chain_k2.joint_names.index(sp["link"])
+                                         for sp in ctrl_k2["obstacles"]["collision_spheres"]))
+            k2_requests["full_bottle_point1 collision frames"] = (
+                chain_mod.SweepRequest(chain_k2, frames), False)
+    k2_err = {}
+    t0 = time.perf_counter()
+    for label, (req, full) in k2_requests.items():
+        nq = req.chain.nq
+        for dtype in (torch.float32, torch.float64):
+            for P in K2_POINTS:
+                gen = torch.Generator(device=dev)
+                gen.manual_seed(P)
+                x = torch.randn(P, 3 * nq, generator=gen, device=dev, dtype=dtype)
+                q = x[:, :nq]
+                v, a = (x[:, nq:2 * nq], x[:, 2 * nq:]) if full else (None, None)
+                n_dir = 3 * nq if full else nq
+                for mode in ("value", "jacobian"):
+                    sweep_args = (req, q, v, a) + ((n_dir,) if mode == "jacobian" else ())
+                    g = getattr(chain_mod.K2, mode)(*sweep_args)
+                    w = getattr(chain_mod.PlainSweep, mode)(*sweep_args)
+                    torch.cuda.synchronize()
+                    key = f"{label} {mode} {str(dtype)[6:]} P {P}"
+                    ok = g.shape == w.shape and g.dtype == dtype and bool(torch.isfinite(g).all())
+                    k2_err[key] = float((g - w).abs().max()) / max(1.0, float(w.abs().max()))
+                    log(f"  {key}: shape {tuple(g.shape)}, max|K2 - plain| / largest = "
+                        f"{k2_err[key]:.3e}")
+                    check(ok and k2_err[key] <= K2_TOL[dtype],
+                          f"{key}: within {K2_TOL[dtype]} of the largest entry")
+                    del g, w
+    log(f"  K2 held in {time.perf_counter() - t0:.2f} s")
+    results["k2_err"] = k2_err
+    k2_max_err_f32 = max(e for k, e in k2_err.items() if "float32" in k)
+
     # the public helpers that no phase below calls (the exact friction cone,
     # BalanceModel.with_params, KinematicChain.frame_motion at every joint
     # frame) on CUDA tensors in both dtypes against their float64 CPU values,
@@ -532,6 +637,7 @@ def main():
     torch.cuda.synchronize()
 
     riccati.launch_count = 0
+    chain_mod.launch_count.update(value=0, jacobian=0)
     sol = batched_solve(params, x0s, cold)
     torch.cuda.synchronize()
 
@@ -566,6 +672,7 @@ def main():
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches_batched = riccati.launch_count
+    launches_k2_batched = dict(chain_mod.launch_count)
     solves_per_s = BATCH * TIMED_RESOLVES / elapsed
     log(f"  {TIMED_RESOLVES} warm re-solves of batch {BATCH}: {elapsed * 1e3 / TIMED_RESOLVES:.2f} ms"
         f" per call, {solves_per_s:.1f} solves/s")
@@ -574,6 +681,15 @@ def main():
     n_calls = 1 + WARM_RESOLVES + TIMED_RESOLVES
     check(launches_batched == n_calls * al_cfg.iterations,
           f"the Riccati kernel was launched once per SQP iteration per call ({launches_batched})")
+    # K2 in a call of one SQP iteration on the card's wide Jacobian mode: 3
+    # Jacobian launches (the stage residuals' and equality rows' sweep under
+    # one jacfwd each, the final rows') and 14 value launches, every chain
+    # sweep of the call; counted through the same code on the CPU with
+    # PlainSweep behind the Function
+    K2_PER_SOLVE_CALL = {"value": 14, "jacobian": 3}
+    check(al_cfg.iterations == 1 and launches_k2_batched == {
+        k: n_calls * n for k, n in K2_PER_SOLVE_CALL.items()},
+          f"K2 was launched {K2_PER_SOLVE_CALL} a solve call ({launches_k2_batched} in {n_calls})")
     for name, t in (("X", sol.state.X), ("U", sol.state.U), ("lam", sol.state.lam),
                     ("mu", sol.state.mu), ("lam_f", sol.state.lam_f), ("K", sol.K),
                     ("cost", sol.cost)):
@@ -693,6 +809,44 @@ def main():
             f"({'bytes' if t_bytes >= t_ops else 'operations'}; {nbytes / 1e6:.2f} MB -> "
             f"{t_bytes:.6f} ms, {flops / 1e9:.4f} GFLOP -> {t_ops:.6f} ms)")
         results[f"riccati_bound_{Bt}x{HORIZON}x18x10"] = max(t_bytes, t_ops)
+    # K2 at the solve cell's points (16,384 x 20) on thing_demo's EE motion,
+    # float32: the Jacobian along (q, v, a) (27 directions x 24 numbers), as
+    # the linearization launches it, and the value mode; beside their bound
+    # (chain_work) and the plain version's Jacobian (PlainSweep: the eager
+    # sweep under vmap(jacfwd))
+    req_ee = k2_requests["thing_demo ee motion"][0]
+    nq_ee, P_ee = req_ee.chain.nq, K2_POINTS[-1]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    x_ee = torch.randn(P_ee, 3 * nq_ee, generator=gen, device=dev)
+    qva_ee = (x_ee[:, :nq_ee], x_ee[:, nq_ee:2 * nq_ee], x_ee[:, 2 * nq_ee:])
+    kinds_ee = [j.kind for j in req_ee.chain.joints[:req_ee.n_joints]]
+    k2_times = {}
+    for mode, n_dir in (("jacobian", 3 * nq_ee), ("value", 0)):
+        if n_dir:
+            call = functools.partial(chain_mod.K2.jacobian, req_ee, *qva_ee, n_dir)
+        else:
+            call = functools.partial(chain_mod.K2.value, req_ee, *qva_ee)
+        nbytes, flops = chain_work(kinds_ee, nq_ee, req_ee.n_out, P_ee, n_dir, 3)
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        t_ops = flops / H100_FP32_FLOPS * 1e3
+        t, t_launch = cuda_median_ms(call, reps=50), cuda_launch_ms(call, reps=50)
+        k2_times[mode] = {
+            "ms": t, "ms_per_launch": t_launch, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops,
+        }
+        log(f"  K2 {mode}, P {P_ee}, nq {nq_ee}, float32: {t:.4f} ms ({t_launch:.4f} per launch); "
+            f"bound {max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms, "
+            f"{flops / P_ee:.0f} operations a point -> {t_ops:.4f} ms), "
+            f"{100 * max(t_bytes, t_ops) / t_launch:.1f}% of it per launch")
+    k2_plain_ms = cuda_median_ms(
+        functools.partial(chain_mod.PlainSweep.jacobian, req_ee, *qva_ee, 3 * nq_ee),
+        reps=3, warmup=1)
+    log(f"  K2's plain version, the Jacobian at the same shape: {k2_plain_ms:.2f} ms")
+    results.update(k2_times=k2_times, k2_plain_ms=k2_plain_ms)
+    del x_ee, qva_ee
+
     plain_ms = cuda_median_ms(
         lambda: riccati.riccati_backward_plain(*inp_b, reg=reg), reps=3, warmup=1)
     inp_c = kernel_inputs["form_b_64x20x27x45"]
@@ -834,11 +988,21 @@ def main():
 
     riccati.launch_count = 0
     contact.launch_count = 0
+    chain_mod.launch_count.update(value=0, jacobian=0)
     t0 = time.perf_counter()
     carry, metrics = run(carry0, LOOP_TICKS)
     torch.cuda.synchronize()
     loop_s = time.perf_counter() - t0
     launches_loop_k1, launches_loop_p1 = riccati.launch_count, contact.launch_count
+    launches_loop_k2 = dict(chain_mod.launch_count)
+    # a tick: 3 Jacobian launches, as phase 4's call, and 17 value launches,
+    # 15 of the solve at the loop's settings (the equality rows 6, the stage
+    # residuals 5, the final rows 4), the plant's one and the loop's EE pose;
+    # counted through the same code on the CPU, as phase 4's
+    K2_PER_TICK = {"value": 17, "jacobian": 3}
+    check(loop_cfg.iterations == 1 and launches_loop_k2 == {
+        k: LOOP_TICKS * n for k, n in K2_PER_TICK.items()},
+          f"K2 was launched {K2_PER_TICK} a tick ({launches_loop_k2} in {LOOP_TICKS})")
     check(launches_loop_k1 == LOOP_TICKS * loop_cfg.iterations,
           f"the Riccati kernel was launched once per tick ({launches_loop_k1})")
     check(launches_loop_p1 == LOOP_TICKS,
@@ -2099,6 +2263,30 @@ def main():
                 "launches_ral23_float64": {k: v["k1_launches"] for k, v in sweep64.items()},
                 "ms_per_launch_ral23_float64": {
                     k: round(v["k1_ms_per_launch_float64"], 6) for k, v in sweep64.items()},
+            },
+            {
+                "name": "chain_sweep",
+                "route": "cuda",
+                "source": "upright_tpu_torch/csrc/chain.cu",
+                "replaces": "upright_tpu/kinematics/chain.py KinematicChain._propagate "
+                            "(no Pallas kernel)",
+                "launches": sum(launches_k2_batched.values()) + sum(launches_loop_k2.values()),
+                "max_abs_err": k2_max_err_f32,
+                "ms": round(k2_times["jacobian"]["ms"], 6),
+                "plain_ms": k2_plain_ms,
+                "bound_ms": k2_times["jacobian"]["bound_ms"],
+                "bound_by": k2_times["jacobian"]["bound_by"],
+                "library_ms": None,
+                "shape": f"thing_demo's EE motion, Jacobian along (q, v, a): P {P_ee}, "
+                         f"nq {nq_ee}, {3 * nq_ee} directions x {req_ee.n_out} numbers, float32",
+                "ms_value": round(k2_times["value"]["ms"], 6),
+                "bound_ms_value": k2_times["value"]["bound_ms"],
+                "ms_per_launch": {k: round(v["ms_per_launch"], 6) for k, v in k2_times.items()},
+                "max_err": results["k2_err"],
+                "launches_batched_path": launches_k2_batched,
+                "launches_closed_loop": launches_loop_k2,
+                "launches_per_solve": K2_PER_SOLVE_CALL,
+                "launches_per_tick": K2_PER_TICK,
             },
             {
                 "name": "plant_substeps",

@@ -1,5 +1,5 @@
-"""The CUDA kernels on the card (Riccati K1, plant P1), at the edges of what
-they take.
+"""The CUDA kernels on the card (Riccati K1, plant P1, the chain's K2), at the
+edges of what they take.
 
 These tests need an NVIDIA GPU and nvcc; elsewhere they skip.  Run them with
 
@@ -19,6 +19,9 @@ and a long horizon, odd widths (rows that cannot be copied 16 bytes at a
 time), a shape whose shared memory exceeds the 48 KB static limit (the opt-in
 attribute path), both input forms, the instances compiled for the shipped
 widths against the runtime-sized one, float64, and what the wrapper refuses.
+K2 is held against the plain sweep in both modes and dtypes, at one point and
+at the solve cell's points, through the solver's three Jacobian modes, and
+counted: one Jacobian launch per jacfwd sweep.
 """
 
 import pytest
@@ -422,3 +425,149 @@ def test_plant_wrapper_refuses_what_the_kernel_does_not_take(card):
         contact.advance_objects(big.to(device=card, dtype=torch.float32), sim.contact, frames,
                                 objects, params)
     assert contact.launch_count == before  # nothing was launched
+
+
+# -- the kinematic chain's kernel K2 ---------------------------------------------
+
+CHAIN_CONFIGS = ("demos/thing_demo.yaml", "ral23/static_obstacles/full_bottle_point1.yaml")
+
+
+def chain_of(path):
+    """(chain, the frames the config's collision spheres hang on or a spread)."""
+    import upright_tpu_torch.config as cfg
+    from upright_tpu_torch.kinematics.robot import build_robot_model
+
+    ctrl = cfg.load_config(cfg.resolve_package_path({"package": "configs", "path": path}))[
+        "controller"]
+    chain = build_robot_model(ctrl["robot"]).chain
+    spheres = ctrl.get("obstacles", {}).get("collision_spheres", [])
+    frames = tuple(dict.fromkeys(chain.joint_names.index(s["link"]) for s in spheres))
+    return chain, frames or (0, len(chain.joints) // 2, len(chain.joints) - 1)
+
+
+@pytest.mark.parametrize("points", [1, 16384 * 20])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 2e-6)],
+                         ids=["float64", "float32"])
+@pytest.mark.parametrize("path", CHAIN_CONFIGS)
+def test_k2_matches_the_plain_chain(card, path, dtype, tol, points):
+    """Both modes against the plain sweep in the same dtype, on the card: the
+    EE's motion along (q, v, a), the collision frames' poses along q, at one
+    point and at the solve cell's points (B 16,384 x N 20); of the largest
+    entry."""
+    from upright_tpu_torch.kinematics import chain as ch
+
+    chain, frames = chain_of(path)
+    nq, last = chain.nq, len(chain.joints) - 1
+    gen = torch.Generator(device=card)
+    gen.manual_seed(points)
+    x = torch.randn(points, 3 * nq, generator=gen, device=card, dtype=dtype)
+    q, v, a = x[:, :nq], x[:, nq:2 * nq], x[:, 2 * nq:]
+    for req, (vv, aa), n_dir in ((ch.SweepRequest(chain, (last,), last), (v, a), 3 * nq),
+                                 (ch.SweepRequest(chain, frames), (None, None), nq)):
+        before = dict(ch.launch_count)
+        got = (ch.K2.value(req, q, vv, aa), ch.K2.jacobian(req, q, vv, aa, n_dir))
+        assert ch.launch_count == {"value": before["value"] + 1,
+                                   "jacobian": before["jacobian"] + 1}
+        want = (ch.PlainSweep.value(req, q, vv, aa), ch.PlainSweep.jacobian(req, q, vv, aa, n_dir))
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and g.dtype == dtype
+            assert float((g - w).abs().max()) <= tol * max(1.0, float(w.abs().max()))
+
+
+@pytest.mark.parametrize("path", CHAIN_CONFIGS)
+def test_k2_stage_derivatives_match_the_plain_sweep(card, path):
+    """The stage derivatives in the three Jacobian modes through K2 against
+    the same through the plain sweep, float64 at batch 8: 1e-10 of the
+    largest entry."""
+    import dataclasses
+
+    import numpy as np
+
+    import upright_tpu_torch.config as cfg
+    from upright_tpu_torch.kinematics.chain import PlainSweep
+    from upright_tpu_torch.ocp.problem import build_problem
+    from upright_tpu_torch.parallel.batch import broadcast_params
+    from upright_tpu_torch.solver import al
+
+    prob = build_problem(cfg.load_config(cfg.resolve_package_path(
+        {"package": "configs", "path": path})), dtype=torch.float64)
+    o = prob.ocp
+    rng = np.random.default_rng(1)
+    B = 8
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float64, device=card)
+
+    x = t(prob.x0.cpu().numpy() + 0.05 * rng.standard_normal((B, o.N, o.nx)))
+    u = t(0.1 * rng.standard_normal((B, o.N, o.nu)))
+    lam = t(rng.standard_normal((B, o.N, o.n_eq)))
+    mu = t(np.abs(rng.standard_normal((B, o.N, o.n_ineq))))
+    p = broadcast_params(prob.stage_params(0.0), B)["stage"]
+    nq = prob.dims.robot_q
+    blocks = (nq,) * 3 + ((9 * prob.dims.num_obstacles,) if prob.dims.num_obstacles else ())
+    for kw in (dict(x_jac_blocks=None, jac_mode="fwd"), dict(x_jac_blocks=blocks, jac_mode="fwd"),
+               dict(x_jac_blocks=None, jac_mode="rev")):
+        ocp = dataclasses.replace(o, **kw)
+        got = al._stage_derivatives(ocp, al.ALConfig(), x, u, p, lam, mu)
+        prob.robot.chain.kernel = PlainSweep
+        try:
+            want = al._stage_derivatives(ocp, al.ALConfig(), x, u, p, lam, mu)
+        finally:
+            prob.robot.chain.kernel = None
+        for g, w in zip(got, want):
+            assert float((g - w).abs().max()) <= 1e-10 * max(1.0, float(w.abs().max()))
+
+
+def test_one_k2_jacobian_launch_per_jacfwd_sweep(card):
+    """A vmap(jacfwd(...)) of one sweep launches K2 once in each mode; the
+    solver's wide linearization sweeps twice (residuals and equality rows)."""
+    import numpy as np
+    from torch.func import jacfwd, vmap
+
+    import upright_tpu_torch.config as cfg
+    from upright_tpu_torch.kinematics import chain as ch
+    from upright_tpu_torch.ocp.problem import build_problem
+    from upright_tpu_torch.parallel.batch import broadcast_params
+    from upright_tpu_torch.solver import al
+
+    chain, _ = chain_of(CHAIN_CONFIGS[0])
+    nq = chain.nq
+    x = torch.randn(64, 3 * nq, device=card)
+
+    def ee_p(x_):
+        return chain.ee_motion(x_[:nq], x_[nq:2 * nq], x_[2 * nq:]).p
+
+    before = dict(ch.launch_count)
+    vmap(jacfwd(ee_p))(x)
+    assert ch.launch_count == {"value": before["value"] + 1, "jacobian": before["jacobian"] + 1}
+
+    prob = build_problem(cfg.load_config(cfg.resolve_package_path(
+        {"package": "configs", "path": CHAIN_CONFIGS[0]})))
+    o = prob.ocp
+    B = 4
+    rng = np.random.default_rng(2)
+    xs = torch.as_tensor(prob.x0.cpu().numpy() + 0.05 * rng.standard_normal((B, o.N, o.nx)),
+                         dtype=torch.float32, device=card)
+    us = torch.zeros((B, o.N, o.nu), device=card)
+    lam = torch.zeros((B, o.N, o.n_eq), device=card)
+    mu = torch.zeros((B, o.N, o.n_ineq), device=card)
+    p = broadcast_params(prob.stage_params(0.0), B)["stage"]
+    before = dict(ch.launch_count)
+    al._stage_derivatives(o, al.ALConfig(), xs, us, p, lam, mu)
+    assert ch.launch_count["jacobian"] - before["jacobian"] == 2
+
+
+def test_k2_refuses_what_it_does_not_take(card):
+    from upright_tpu_torch.kinematics import chain as ch
+
+    chain, _ = chain_of(CHAIN_CONFIGS[0])
+    req = ch.SweepRequest(chain, (len(chain.joints) - 1,))
+    q = torch.zeros(4, chain.nq, device=card)
+    before = dict(ch.launch_count)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        ch.K2.value(req, q.half(), None, None)
+    with pytest.raises(TypeError, match="q is"):
+        ch.K2.value(req, q, q.double(), None)
+    with pytest.raises(ValueError, match="coordinates"):
+        ch.K2.value(req, q[:, :3], None, None)
+    assert ch.launch_count == before

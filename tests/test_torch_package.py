@@ -249,9 +249,11 @@ def test_rebuild_only_for_a_change_of_its_own_files(tmp_path, monkeypatch):
 
 
 def test_plant_kernel_is_built_without_fused_multiply_adds(tmp_path, monkeypatch):
-    """nvcc gets -fmad=false for the plant kernel and only for it: with fused
-    multiply-adds its float32 result leaves the limits it is held to on the
-    card (PERF.md), which the CPU emulation cannot show."""
+    """nvcc gets -fmad=false for the plant kernel and the chain kernel, and
+    not for the Riccati kernel: with fused multiply-adds the plant's float32
+    result leaves the limits it is held to on the card, and the chain's
+    drifts from the plain sweep's rounding (PERF.md), which the CPU
+    emulation cannot show."""
     commands = {}
 
     class Recorder:
@@ -269,6 +271,7 @@ def test_plant_kernel_is_built_without_fused_multiply_adds(tmp_path, monkeypatch
         _build.build(list(_build.SOURCES))
     flags = {Path(src).stem: cmd for src, cmd in commands.items()}
     assert "-fmad=false" in flags["plant"] and "-fmad=false" not in flags["riccati"]
+    assert "-fmad=false" in flags["chain"]
 
 
 def test_executor_builds_into_the_port_and_never_into_the_reference(tmp_path, monkeypatch):

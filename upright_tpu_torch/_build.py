@@ -24,6 +24,7 @@ BUILD_DIR = _PKG / "build"
 SOURCES = {
     "riccati": ("riccati.cu", "async_copy.cuh"),
     "plant": ("plant.cu",),
+    "chain": ("chain.cu",),
 }
 
 NVCC_FLAGS = [
@@ -34,8 +35,11 @@ NVCC_FLAGS = [
 # Flags of one library.  The plant kernel rounds every product and sum on its
 # own, as its plain version does: a stiff contact amplifies the difference a
 # fused multiply-add makes until float32 leaves the limits it is held to
-# (tools/plant_data.py F32_TOL; PERF.md).
-LIBRARY_FLAGS = {"plant": ("-fmad=false",)}
+# (tools/plant_data.py F32_TOL; PERF.md).  The chain kernel does the same, so
+# that its float32 sweep rounds as the plain sweep's elementwise operations
+# do: the closed loop's ill-conditioned cold iterations amplify the
+# difference (PERF.md).
+LIBRARY_FLAGS = {"plant": ("-fmad=false",), "chain": ("-fmad=false",)}
 
 _LIBS = {}
 

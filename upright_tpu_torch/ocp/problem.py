@@ -829,11 +829,8 @@ class _CollisionRows:
 
     def __call__(self, x):
         q = x[..., : self.nq]
-        zero = torch.zeros_like(q)
-        frames = self.chain._propagate(q, zero, zero)
         lead = q.shape[:-1]
-        R = torch.stack([frames[i].R.expand(lead + (3, 3)) for i in self.frame_idx], dim=-3)
-        p = torch.stack([frames[i].p.expand(lead + (3,)) for i in self.frame_idx], dim=-2)
+        R, p = self.chain.frame_poses(q, self.frame_idx)
         R = R.index_select(-3, self.sphere_frame)  # (..., n_spheres, 3, 3)
         centres = p.index_select(-2, self.sphere_frame) + matvec(R, self.offsets)
         others = self.static_pos.expand(lead + tuple(self.static_pos.shape))

@@ -353,7 +353,7 @@ class UprightSimulation:
         step's time t (B, n), joint positions q and velocities v (B, n, nq):
         one sweep of the chain at zero joint acceleration.  Tests override it
         to prescribe the tray frame."""
-        return self.robot.chain.ee_motion(q, v, torch.zeros_like(q))
+        return self.robot.chain.ee_motion(q, v)
 
     # -- observation -----------------------------------------------------
 

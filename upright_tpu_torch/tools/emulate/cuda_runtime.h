@@ -1,8 +1,9 @@
 // Stand-in for <cuda_runtime.h> that lets a C++ compiler build the device code
-// of csrc/riccati.cu and csrc/plant.cu for the CPU: one pthread plays one CUDA
-// thread, a pthread barrier per block plays __syncthreads, and a barrier per
-// warp plays __syncwarp and, with an exchange buffer, the shuffles.  Only what
-// those kernels use is here.  See ../emulate_riccati.py and ../emulate_plant.py.
+// of csrc/riccati.cu, csrc/plant.cu and csrc/chain.cu for the CPU: one pthread
+// plays one CUDA thread, a pthread barrier per block plays __syncthreads, and a
+// barrier per warp plays __syncwarp and, with an exchange buffer, the shuffles.
+// Only what those kernels use is here.  See ../emulate_riccati.py,
+// ../emulate_plant.py and ../emulate_chain.py.
 
 #pragma once
 
@@ -19,6 +20,7 @@
 #define __launch_bounds__(...)
 #define __shared__
 #define __align__(n)
+#define __grid_constant__
 
 struct Dim3 {
   int x, y, z;
