@@ -36,6 +36,7 @@ from upright_tpu_torch.core.polyhedron import plane_span
 from upright_tpu_torch.kinematics.robot import RobotModel, build_robot_model
 from upright_tpu_torch.ocp.reference import TargetTrajectory
 from upright_tpu_torch.solver.ocp import OCP, IneqBoxRows, SolverState
+from upright_tpu_torch.tracing import span
 
 
 @dataclasses.dataclass
@@ -528,14 +529,15 @@ def build_problem(config: dict, N: Optional[int] = None, device="cuda",
         if nonholonomic:
             rows.append(_rolling_rows(x))
         if n_obj > 0:
-            forces_flat = u[..., nq:] * fscale  # scaled variables -> physical newtons
-            scen = model.replace(params=p["obj_params"])
-            if frictionless:
-                forces = bal.expand_frictionless_forces(scen, forces_flat)
-            else:
-                forces = forces_flat.unflatten(-1, (nc, 3))
             ee = ee_state_of(x)
-            rows.append(bal.object_dynamics_constraints(scen, forces, ee, gravity))
+            with span("ocp.balance", x.device):
+                forces_flat = u[..., nq:] * fscale  # scaled variables -> physical newtons
+                scen = model.replace(params=p["obj_params"])
+                if frictionless:
+                    forces = bal.expand_frictionless_forces(scen, forces_flat)
+                else:
+                    forces = forces_flat.unflatten(-1, (nc, 3))
+                rows.append(bal.object_dynamics_constraints(scen, forces, ee, gravity))
         if not rows:
             return x.new_zeros(x.shape[:-1] + (0,))
         return torch.cat(rows, dim=-1)
@@ -611,10 +613,11 @@ def build_problem(config: dict, N: Optional[int] = None, device="cuda",
         # divided by fscale_c, the same feasible set with O(1) rows for every
         # object mass
         if nc > 0 and not frictionless:
-            scen = model.replace(params=p["obj_params"])
-            return bal.contact_force_constraints_linearized(
-                scen, u[..., nq:].unflatten(-1, (nc, 3))
-            )
+            with span("ocp.balance", x.device):
+                scen = model.replace(params=p["obj_params"])
+                return bal.contact_force_constraints_linearized(
+                    scen, u[..., nq:].unflatten(-1, (nc, 3))
+                )
         return None
 
     def _ineq_box(x, u):

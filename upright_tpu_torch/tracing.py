@@ -24,6 +24,13 @@ parent):
   loop.plant      the policy, the command integration, ``sim.step`` and the
                   EE pose after it
 
+and, inside whichever phase evaluates or differentiates the stage rows:
+
+  ocp.balance     ``ocp/problem.py``: the contact forces' expansion and the
+                  objects' wrench balances in ``eq``, the friction cones in
+                  the inequality rows (under ``jacfwd`` an occurrence holds
+                  the rows' primal and tangent kernels)
+
 The port's other instruments are two counters: ``solver/riccati.py``
 ``launch_count`` (K1 launches; the benchmark's one-launch-per-iteration
 check reads it) and ``sim/contact.py`` ``launch_count`` (P1 launches;
